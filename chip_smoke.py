@@ -5,23 +5,35 @@
 
 Run from the root of a checkout.  Phases, each fatal on failure:
   1. device: nvidia-smi name and power limit, torch / CUDA / nvcc versions;
-  2. build: the CUDA kernels, from sdpb_tpu_torch/csrc, all limb counts;
+  2. build: the CUDA kernels, from sdpb_tpu_torch/csrc, all limb counts,
+     classic and scaled;
   3. exactness: TwoSum and TwoProd exact on the card, in plain torch and
-     inside the kernels (through a 1 x 1 x 1 mp_matmul);
-  4. kernels against their plain PyTorch versions at the solve's shapes
-     (120 blocks of the ising ladder), bit-identical limbs, spot checks
-     against mpmath, kernel and plain times;
-  5. the dim-2 certificate SDP solved to optimality through the CLI entry
-     point at 150 bits: y* must match the independently bisected optimum;
-  6. the 120-block ladder fixture at 216 bits for a bounded number of
-     iterations: finite statistics, positive steps, falling mu, seconds
-     per iteration, peak memory, kernel launch counts.
+     inside the kernels (through 1 x 1 and 1 x 2 mp_matmuls), float64 and
+     float32;
+  4. classic kernels against their plain PyTorch versions at the solve's
+     shapes (120 blocks of the ising ladder), bit-identical limbs, spot
+     checks against mpmath, kernel and plain times, bounds;
+  5. the dim-2 certificate SDP (fixtures/dim2_certificate/sdp.zip) solved
+     to optimality through the CLI entry point at 150 bits, classic: y*
+     must match the independently bisected optimum;
+  6. the 120-block ladder fixture at 216 bits, classic, for a bounded
+     number of iterations: finite statistics, positive steps, falling mu,
+     seconds per iteration, peak memory, kernel launch counts;
+  7. the scaled kernels against their plain versions at the scaled solve's
+     shapes (limbs and exponents bit-identical), spot checks, times, bounds;
+  8. the certificate again in the scaled representation, 150 bits (7
+     float32 limbs): optimal, y* matches;
+  9. the ladder in the scaled representation, 9 float32 limbs (216 bits of
+     mantissa), same settings and iterations as phase 6: finite statistics,
+     falling mu, s/iteration, peak memory, launches, and the digits its
+     objectives share with phase 6's classic run.
 The last line of stdout is {"ok": true, "device": {...}}; the line before
-it is the kernels' JSON record.  Without CUDA, or outside a checkout, the
-script exits non-zero and prints no result.
+it is the kernels' JSON record, and the line before that the card's name
+and power limit.  Without CUDA, or outside a checkout, the script exits
+non-zero and prints no result.
 """
 import json
-import os
+import math
 import subprocess
 import sys
 import tempfile
@@ -31,28 +43,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 LADDER = ROOT / "fixtures" / "ising_ladder_120" / "sdp.zip"
+CERTIFICATE = ROOT / "fixtures" / "dim2_certificate" / "sdp.zip"
 LADDER_ITERATIONS = 10
-Y_OPT = "-1.685650770619604657526474"
-# the dim-2 PMP of tests/test_dim2_certificate.py, whose optimum Y_OPT was
-# bisected independently in mpmath
-PMP = {
-    "objective": ["0", "-1"],
-    "normalization": ["1", "0"],
-    "PositiveMatrixWithPrefactorArray": [
-        {"DampedRational": {
-            "constant": "1",
-            "base": "0.36787944117144232159552377016146086744581113103177",
-            "poles": []},
-         "polynomials": [
-             [[["1", "0", "0", "0", "1"],
-               ["0", "0", "1", "0", "0.083333333333333333333333333333333333333333"]],
-              [["0"], ["0", "0", "0.1"]]],
-             [[["0"], ["0", "0", "0.1"]],
-              [["1", "0", "0", "0", "1"],
-               ["0", "0", "1", "0", "0.083333333333333333333333333333333333333333"]]],
-         ]}
-    ],
-}
+Y_OPT = "-1.685650770619604657526474"   # bisected independently in mpmath
+# (name, source, TPU kernel replaced): the classic build replaces the
+# scaled=False branch of each Pallas kernel, the scaled build (the same
+# source over csrc/mp_scaled.cuh) its scaled=True branch
 KERNELS = {
     "mp_matmul": ("sdpb_tpu_torch/csrc/mp_matmul.cu",
                   "sdpb_tpu/ops/pallas_kernels.py:29"),
@@ -61,6 +57,19 @@ KERNELS = {
     "mp_solve_triangular": ("sdpb_tpu_torch/csrc/mp_trsm.cu",
                             "sdpb_tpu/ops/pallas_kernels.py:576"),
 }
+# H100 SXM at 700 W (NVIDIA data sheet): non-fused add/mul per second on
+# the CUDA cores (34 and 67 TFLOP/s count a fused multiply-add as two) and
+# device memory bytes per second
+OPS_PER_S = {False: 16.7e12, True: 33.5e12}
+BYTES_PER_S = 3.35e12
+SOLVE_FLAGS = ("--dualityGapThreshold", "1e-12", "--primalErrorThreshold", "1e-12",
+               "--dualErrorThreshold", "1e-12", "--initialMatrixScalePrimal", "1e2",
+               "--initialMatrixScaleDual", "1e2", "--maxIterations", "250",
+               "--verbosity", "0")
+LADDER_FLAGS = ("--dualityGapThreshold", "1e-20", "--primalErrorThreshold", "1e-20",
+                "--dualErrorThreshold", "1e-20", "--initialMatrixScalePrimal", "1e4",
+                "--initialMatrixScaleDual", "1e4",
+                "--maxIterations", str(LADDER_ITERATIONS))
 
 
 class PhaseError(RuntimeError):
@@ -95,11 +104,12 @@ def device_phase(torch):
 def build_phase(kernels):
     phase("2. build")
     t0 = time.time()
-    built = kernels.build(kernels.K_RANGE)
-    for K in kernels.K_RANGE:
-        kernels._library(K)
-    print(f"build: {time.time() - t0:.1f} s for K={list(kernels.K_RANGE)} "
-          f"(compiled now: {built})")
+    built = kernels.build()
+    for scaled in kernels.REPRESENTATIONS:
+        for K in kernels.K_RANGE:
+            kernels._library(K, scaled)
+    print(f"build: {time.time() - t0:.1f} s for K={list(kernels.K_RANGE)}, classic "
+          f"and scaled (compiled now: {len(built)} libraries)")
     return time.time() - t0
 
 
@@ -108,47 +118,66 @@ def exactness_phase(torch, mp, kernels, dev):
     import numpy as np
     from sdpb_tpu_torch.ops import eft
     rng = np.random.default_rng(3)
-    a = rng.standard_normal(256) * np.exp(rng.uniform(-30, 30, 256))
-    b = rng.standard_normal(256) * np.exp(rng.uniform(-30, 30, 256))
-    ta, tb = torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
-    s, e = [x.cpu().numpy() for x in eft.two_sum(ta, tb)]
-    p, pe = [x.cpu().numpy() for x in eft.two_prod(ta, tb)]
-    for i in range(256):
-        check(Fraction(s[i]) + Fraction(e[i]) == Fraction(a[i]) + Fraction(b[i]),
-              f"torch two_sum not exact on the card at {i}")
-        check(Fraction(p[i]) + Fraction(pe[i]) == Fraction(a[i]) * Fraction(b[i]),
-              f"torch two_prod not exact on the card at {i}")
-    f64 = lambda v: torch.tensor(v, dtype=torch.float64, device=dev)
-    for i in range(16):
-        # product: [a, 0] x [b, 0] -> TwoProd in mp.cuh, exact in 2 limbs
-        x = mp.MP(f64([[[[a[i]]]], [[[0.0]]]]))
-        y = mp.MP(f64([[[[b[i]]]], [[[0.0]]]]))
-        o = kernels.mp_matmul(x, y).limbs.flatten().cpu().numpy()
-        check(Fraction(o[0]) + Fraction(o[1]) == Fraction(a[i]) * Fraction(b[i]),
-              f"mp.cuh TwoProd not exact at {i}: {o}")
-        # sum: [a_i, b_i] . [1, 1] -> TwoSum chain in mp.cuh, exact in 2 limbs
-        x = mp.MP(f64([[[[a[i], b[i]]]], [[[0.0, 0.0]]]]))
-        y = mp.MP(f64([[[[1.0], [1.0]]], [[[0.0], [0.0]]]]))
-        o = kernels.mp_matmul(x, y).limbs.flatten().cpu().numpy()
-        check(Fraction(o[0]) + Fraction(o[1]) == Fraction(a[i]) + Fraction(b[i]),
-              f"mp.cuh TwoSum not exact at {i}: {o}")
-    print("two_sum / two_prod exact in plain torch (256 pairs) and in mp.cuh "
-          "(16 pairs each)")
+    for dtype in (torch.float64, torch.float32):
+        npdt = np.float64 if dtype == torch.float64 else np.float32
+        a = (rng.standard_normal(256) * np.exp(rng.uniform(-30, 30, 256))).astype(npdt)
+        b = (rng.standard_normal(256) * np.exp(rng.uniform(-30, 30, 256))).astype(npdt)
+        ta, tb = torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)
+        s, e = [x.cpu().numpy() for x in eft.two_sum(ta, tb)]
+        p, pe = [x.cpu().numpy() for x in eft.two_prod(ta, tb)]
+        for i in range(256):
+            check(Fraction(float(s[i])) + Fraction(float(e[i])) ==
+                  Fraction(float(a[i])) + Fraction(float(b[i])),
+                  f"torch two_sum not exact on the card at {i} ({dtype})")
+            check(Fraction(float(p[i])) + Fraction(float(pe[i])) ==
+                  Fraction(float(a[i])) * Fraction(float(b[i])),
+                  f"torch two_prod not exact on the card at {i} ({dtype})")
+
+    def value(o: "mp.MP") -> Fraction:
+        limbs = o.limbs.flatten().cpu().numpy()
+        v = sum((Fraction(float(x)) for x in limbs), Fraction(0))
+        return v if o.exp is None else v * Fraction(2) ** int(o.exp.flatten()[0])
+
+    for scaled, K in ((False, 2), (True, 5)):
+        def val(x, shape):
+            t = torch.as_tensor(np.asarray(x, dtype=np.float64).reshape(shape), device=dev)
+            return mp.from_double(t, K, scaled=True) if scaled else mp.from_double(t, K)
+        for i in range(16):
+            # product: a x b in the kernel's MP product (exact in K limbs)
+            o = kernels.mp_matmul(val([a[i]], (1, 1, 1)), val([b[i]], (1, 1, 1)))
+            check(value(o) == Fraction(float(a[i])) * Fraction(float(b[i])),
+                  f"kernel TwoProd not exact at {i} (scaled={scaled})")
+            # sum: [a_i, b_i] . [1, 1] through the kernel's MP adds
+            o = kernels.mp_matmul(val([a[i], b[i]], (1, 1, 2)), val([1.0, 1.0], (1, 2, 1)))
+            check(value(o) == Fraction(float(a[i])) + Fraction(float(b[i])),
+                  f"kernel TwoSum not exact at {i} (scaled={scaled})")
+    print("two_sum / two_prod exact in plain torch (256 pairs, float64 and float32) "
+          "and in the classic and scaled kernels (16 pairs each)")
 
 
-def _limbs(rng, shape, K, positive_diag=None):
-    """Random float64 limb stacks with fresh bits in every limb."""
+# ---------------------------------------------------------------------------
+# Kernel phases: inputs, timing, bounds
+
+
+def _limbs(rng, shape, K, spd=False, decades=0.0):
+    """Random float64 limb stacks with fresh bits in every limb; spd makes
+    symmetric positive definite blocks G G^T + n I, graded over
+    2 * decades decades by a diagonal scaling."""
     import numpy as np
     top = rng.standard_normal(shape)
-    if positive_diag is not None:   # SPD: G G^T + n I, symmetrized
+    if spd:
         top = top @ np.swapaxes(top, -1, -2) + shape[-1] * np.eye(shape[-1])
+        d = 10.0 ** rng.uniform(-decades, decades, shape[:-1])
+        top = top * d[..., :, None] * d[..., None, :]
         top = (top + np.swapaxes(top, -1, -2)) / 2
+    elif decades:
+        top = top * 10.0 ** rng.uniform(-decades, decades, shape)
     out = np.zeros((K,) + tuple(shape))
     out[0] = top
     for k in range(1, K):
         out[k] = (out[k - 1] * 2.0 ** -53 * rng.uniform(0.5, 1.0, shape)
                   * rng.choice([-1.0, 1.0], shape))
-    if positive_diag is not None:
+    if spd:
         out = (out + np.swapaxes(out, -1, -2)) / 2
     return out
 
@@ -169,131 +198,221 @@ def _time_ms(torch, fn, reps=5):
     return sorted(ts)[len(ts) // 2]
 
 
-def _mpf(limbs):
+def _timed_once(torch, fn):
+    """(result, ms) of one call timed with CUDA events."""
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def _mpf(limbs, exp=0):
     import mpmath
-    return mpmath.fsum(mpmath.mpf(float(x)) for x in limbs)
+    return mpmath.fsum(mpmath.mpf(float(x)) for x in limbs) * mpmath.mpf(2) ** int(exp)
 
 
-def kernel_phase(torch, mp, kernels, dev):
-    phase("4. kernels against plain versions (ladder shapes)")
+def _renorm_ops(K, M):
+    """Float operations of renorm_terms<K, M> (mp.cuh): K TwoSum sweeps (6
+    each), the residue chain, 2K-1 quick TwoSums (3 each)."""
+    return 6 * sum(M - 1 - k for k in range(K)) + (M - 1 - K) + 3 * (2 * K - 1)
+
+
+def mp_op_counts(K, scaled):
+    """Float operations of one MP add, mul, rsqrt and reciprocal inside the
+    kernels, counted from mp.cuh / mp_scaled.cuh (split 5, TwoSum 6; a
+    scaled add aligns both operands and normalizes, 3 multiplies per limb
+    each; a scaled product prescales 2K limbs and puts each of its K^2+1
+    terms back with 2 multiplies; integer exponent work is not counted)."""
+    from sdpb_tpu_torch.ops.mpfloat import newton_steps
+    add = _renorm_ops(K, 2 * K)
+    mul = (10 * K + K * (K + 1) // 2 + 8 * (K * (K - 1) // 2) + (2 * K - 3)
+           + _renorm_ops(K, K * K + 1))
+    seed = 3
+    if scaled:
+        add += 9 * K
+        mul += 2 * K + 2 * (K * K + 1) + 3 * K
+        seed += 2 + 3 * K
+    steps = newton_steps(K)
+    rsqrt = seed + steps * (4 * mul + add)
+    recip = seed + steps * (2 * mul + 2 * add)
+    return add, mul, rsqrt, recip
+
+
+def kernel_bound(name, shape, K, scaled):
+    """(bound_ms, bound_by): the larger of the float operations over the
+    card's rate and the bytes (inputs read once, outputs written once) over
+    its memory rate, for one call at `shape`."""
+    add, mul, rsqrt, recip = mp_op_counts(K, scaled)
+    per_elem = K * (4 if scaled else 8) + (4 if scaled else 0)
+    if name == "mp_matmul":
+        B, M, Kd, N = shape
+        ops = B * M * N * 8 * math.ceil(Kd / 8) * (mul + add)
+        elems = B * (M * Kd + Kd * N + M * N)
+    elif name == "mp_cholesky":
+        B, n = shape
+        ops = B * sum(rsqrt + mul + (n - 1 - j) * mul
+                      + (n - 1 - j) * (n - j) // 2 * (mul + add) for j in range(n))
+        elems = 2 * B * n * n
+    else:
+        B, n, m = shape
+        ops = B * (n * recip + n * m * mul + m * n * (n - 1) // 2 * (mul + add))
+        elems = B * (n * n + 2 * n * m)
+    t_ops = ops / OPS_PER_S[scaled]
+    t_bytes = elems * per_elem / BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _err(k, p):
+    """max |kernel - plain| over the limbs; inf where exponents differ."""
+    if k.exp is not None and not bool((k.exp == p.exp).all()):
+        return float("inf")
+    return float((k.limbs.double() - p.limbs.double()).abs().max())
+
+
+def kernel_phase(torch, mp, kernels, dev, scaled):
+    """Each kernel of one representation against its plain version at the
+    ladder solve's shapes: bit-identical limbs (and exponents), a spot
+    check against mpmath, kernel and plain times, the bound."""
     import mpmath
     import numpy as np
-    rng = np.random.default_rng(4)
-    C = lambda x: mp.MP(torch.as_tensor(x, device=dev))
+    rng = np.random.default_rng(7 if scaled else 4)
+    if scaled:
+        # the scaled ladder: 9 limbs (216 bits); factor 8 limbs as
+        # initial_factor_limbs gives at Omega=1e4, gap 1e-20, 24-bit limbs
+        Kg, Kf, decades, mant = 9, 8, 3.0, 24
+        phase("7. scaled kernels against plain versions (ladder shapes)")
+    else:
+        Kg, Kf, decades, mant = 5, 4, 0.0, 53
+        phase("4. classic kernels against plain versions (ladder shapes)")
+
+    def C(x, K):
+        if scaled:
+            return mp.from_parts(*mp.f64_limbs_to_scaled_parts(x, K), dev)
+        return mp.MP(torch.as_tensor(x[:K], device=dev))
+
+    def host(o):
+        limbs = o.limbs.cpu().numpy()
+        exp = o.exp.cpu().numpy() if scaled else np.zeros(limbs.shape[1:], np.int64)
+        return lambda idx: _mpf(limbs[(slice(None),) + idx], exp[idx])
+
+    K64 = -(-(24 * Kg) // 53) + 1 if scaled else Kg
     rows = []
 
-    def compare(name, shape, out_k, out_p, spot):
-        same = torch.equal(out_k.limbs, out_p.limbs)
-        err = float((out_k.limbs - out_p.limbs).abs().max())
-        check(same, f"{name} {shape}: kernel differs from plain (max {err})")
-        K = out_k.K
-        with mpmath.workprec(53 * K + 80):
-            worst = max(spot(out_k.limbs.cpu().numpy(), i) for i in range(20))
-        check(worst < mpmath.mpf(2) ** -(53 * K - 10),
+    def compare(name, shape, out_k, out_p, spot, K, pms):
+        err = _err(out_k, out_p)
+        check(err == 0.0, f"{name} {shape}: kernel differs from plain (max {err})")
+        with mpmath.workprec(mant * K + 80):
+            worst = max(spot(i) for i in range(20))
+        check(worst < mpmath.mpf(2) ** -(mant * K - 10),
               f"{name} {shape}: spot check vs mpmath {worst}")
         return err, float(worst)
 
-    # --- mp_matmul at K = 5: pairings [120,20,20]@[120,20,19], Q [120,15,57]@[120,57,15]
     for (B, M, Kd, N) in ((120, 20, 20, 19), (120, 15, 57, 15)):
-        K = 5
-        a, b = _limbs(rng, (B, M, Kd), K), _limbs(rng, (B, Kd, N), K)
-        A, Bm = C(a), C(b)
-        ok, op = kernels.mp_matmul(A, Bm), kernels.mp_matmul_plain(A, Bm)
+        a = _limbs(rng, (B, M, Kd), K64, decades=decades)
+        b = _limbs(rng, (B, Kd, N), K64, decades=decades)
+        A, Bm = C(a, Kg), C(b, Kg)
+        ok = kernels.mp_matmul(A, Bm)
+        op, pms = _timed_once(torch, lambda: kernels.mp_matmul_plain(A, Bm))
+        ha, hb, ho = host(A), host(Bm), host(ok)
 
-        def spot(o, i, a=a, b=b, B=B, M=M, N=N, Kd=Kd):
+        def spot(i, B=B, M=M, N=N, Kd=Kd, ha=ha, hb=hb, ho=ho):
             r = np.random.default_rng(i)
             bi, mi, ni = r.integers(B), r.integers(M), r.integers(N)
-            terms = [_mpf(a[:, bi, mi, t]) * _mpf(b[:, bi, t, ni]) for t in range(Kd)]
-            return abs(_mpf(o[:, bi, mi, ni]) - mpmath.fsum(terms)) / \
+            terms = [ha((bi, mi, t)) * hb((bi, t, ni)) for t in range(Kd)]
+            return abs(ho((bi, mi, ni)) - mpmath.fsum(terms)) / \
                 mpmath.fsum(abs(t) for t in terms)
-        err, worst = compare("mp_matmul", (B, M, Kd, N), ok, op, spot)
+        err, worst = compare("mp_matmul", (B, M, Kd, N), ok, op, spot, Kg, pms)
         ms = _time_ms(torch, lambda: kernels.mp_matmul(A, Bm))
-        pms = _time_ms(torch, lambda: kernels.mp_matmul_plain(A, Bm))
-        rows.append(("mp_matmul", f"[{B},{M},{Kd}]@[{B},{Kd},{N}] K={K}", err, worst, ms, pms))
+        bound, by = kernel_bound("mp_matmul", (B, M, Kd, N), Kg, scaled)
+        rows.append(("mp_matmul", f"[{B},{M},{Kd}]@[{B},{Kd},{N}] K={Kg}",
+                     err, worst, ms, pms, bound, by))
 
-    # --- mp_cholesky at Kf = 4: S [120,57,57], X/Y [120,20,20]
     chol = {}
     for n in (57, 20):
-        K, B = 4, 120
-        a = _limbs(rng, (B, n, n), K, positive_diag=True)
-        A = C(a)
-        ok, op = kernels.mp_cholesky(A), kernels.mp_cholesky_plain(A)
-        chol[n] = (a, ok)
+        B = 120
+        A = C(_limbs(rng, (B, n, n), -(-(24 * Kf) // 53) + 1 if scaled else Kf,
+                     spd=True, decades=decades), Kf)
+        ok = kernels.mp_cholesky(A)
+        op, pms = _timed_once(torch, lambda: kernels.mp_cholesky_plain(A))
+        chol[n] = ok
+        ha, hL = host(A), host(ok)
 
-        def spot(L, i, a=a, n=n, B=B):
+        def spot(i, n=n, B=B, ha=ha, hL=hL):
             r = np.random.default_rng(100 + i)
             bi, ii = r.integers(B), r.integers(n)
             jj = r.integers(ii + 1)
-            rec = mpmath.fsum(_mpf(L[:, bi, ii, t]) * _mpf(L[:, bi, jj, t])
-                              for t in range(jj + 1))
-            return abs(rec - _mpf(a[:, bi, ii, jj])) / \
-                mpmath.sqrt(abs(_mpf(a[:, bi, ii, ii]) * _mpf(a[:, bi, jj, jj])))
-        err, worst = compare("mp_cholesky", (B, n, n), ok, op, spot)
+            rec = mpmath.fsum(hL((bi, ii, t)) * hL((bi, jj, t)) for t in range(jj + 1))
+            return abs(rec - ha((bi, ii, jj))) / \
+                mpmath.sqrt(abs(ha((bi, ii, ii)) * ha((bi, jj, jj))))
+        err, worst = compare("mp_cholesky", (B, n, n), ok, op, spot, Kf, pms)
         ms = _time_ms(torch, lambda: kernels.mp_cholesky(A))
-        pms = _time_ms(torch, lambda: kernels.mp_cholesky_plain(A), reps=3)
-        rows.append(("mp_cholesky", f"[{B},{n},{n}] K={K}", err, worst, ms, pms))
+        bound, by = kernel_bound("mp_cholesky", (B, n), Kf, scaled)
+        rows.append(("mp_cholesky", f"[{B},{n},{n}] K={Kf}", err, worst, ms, pms,
+                     bound, by))
 
-    # --- mp_solve_triangular at Kf = 4: L [120,57,57] \ [120,57,15], lower and upper
-    _, Lk = chol[57]
-    K, B, n, m = 4, 120, 57, 15
-    b = _limbs(rng, (B, n, m), K)
-    Bm = C(b)
-    Lnp = Lk.limbs.cpu().numpy()
+    L = chol[57]
+    B, n, m = 120, 57, 15
+    Bm = C(_limbs(rng, (B, n, m), -(-(24 * Kf) // 53) + 1 if scaled else Kf,
+                  decades=decades), Kf)
+    hL, hb = host(L), host(Bm)
     for lower in (True, False):
-        T = Lk if lower else mp.MP(Lk.limbs.mT.contiguous())
+        T = L if lower else mp.MP(L.limbs.mT.contiguous(),
+                                  None if L.exp is None else L.exp.mT.contiguous())
         ok = kernels.mp_solve_triangular(T, Bm, lower)
-        op = kernels.mp_solve_triangular_plain(T, Bm, lower)
+        op, pms = _timed_once(torch, lambda: kernels.mp_solve_triangular_plain(T, Bm, lower))
+        hX = host(ok)
 
-        def spot(X, i, lower=lower):
+        def spot(i, lower=lower, hX=hX):
             r = np.random.default_rng(200 + i)
             bi, ii, c = r.integers(B), r.integers(n), r.integers(m)
             ts = range(ii + 1) if lower else range(ii, n)
-            terms = [_mpf(Lnp[:, bi, ii, t] if lower else Lnp[:, bi, t, ii])
-                     * _mpf(X[:, bi, t, c]) for t in ts]
-            return abs(mpmath.fsum(terms) - _mpf(b[:, bi, ii, c])) / \
-                (mpmath.fsum(abs(t) for t in terms) + abs(_mpf(b[:, bi, ii, c])))
-        err, worst = compare("mp_solve_triangular", (B, n, m, lower), ok, op, spot)
+            terms = [(hL((bi, ii, t)) if lower else hL((bi, t, ii))) * hX((bi, t, c))
+                     for t in ts]
+            return abs(mpmath.fsum(terms) - hb((bi, ii, c))) / \
+                (mpmath.fsum(abs(t) for t in terms) + abs(hb((bi, ii, c))))
+        err, worst = compare("mp_solve_triangular", (B, n, m, lower), ok, op, spot,
+                             Kf, pms)
         ms = _time_ms(torch, lambda: kernels.mp_solve_triangular(T, Bm, lower))
-        pms = _time_ms(torch, lambda: kernels.mp_solve_triangular_plain(T, Bm, lower),
-                       reps=3)
+        bound, by = kernel_bound("mp_solve_triangular", (B, n, m), Kf, scaled)
         rows.append(("mp_solve_triangular",
-                     f"[{B},{n},{n}]\\[{B},{n},{m}] {'lower' if lower else 'upper'} K={K}",
-                     err, worst, ms, pms))
+                     f"[{B},{n},{n}]\\[{B},{n},{m}] {'lower' if lower else 'upper'} K={Kf}",
+                     err, worst, ms, pms, bound, by))
 
     print(f"{'kernel':22s} {'shape':40s} {'max|k-p|':>9s} {'vs mpmath':>10s} "
-          f"{'kernel ms':>10s} {'plain ms':>10s}")
-    for name, shape, err, worst, ms, pms in rows:
-        print(f"{name:22s} {shape:40s} {err:9.1e} {worst:10.2e} {ms:10.3f} {pms:10.1f}")
+          f"{'kernel ms':>10s} {'plain ms':>10s} {'bound ms':>10s} bound by")
+    for name, shape, err, worst, ms, pms, bound, by in rows:
+        print(f"{name:22s} {shape:40s} {err:9.1e} {worst:10.2e} {ms:10.3f} "
+              f"{pms:10.1f} {bound:10.4f} {by}")
     return rows
 
 
-def certificate_phase(torch, kernels, cli, dev):
-    phase("5. dim-2 certificate solve (150 bits)")
+def _y_value(res):
+    """y* of the one-dimensional dual as an mpmath value."""
+    import numpy as np
+    from sdpb_tpu_torch.ops.mpfloat import host_f64_limbs
+    return _mpf(np.asarray(host_f64_limbs(res.state.y))[:, 0])
+
+
+def certificate_phase(torch, kernels, cli, dev, scaled):
+    label = ("8. dim-2 certificate solve, scaled (150 bits, 7 float32 limbs)"
+             if scaled else "5. dim-2 certificate solve (150 bits)")
+    phase(label)
     import mpmath
     with tempfile.TemporaryDirectory() as tmp:
-        pmp = Path(tmp) / "dim2.json"
-        pmp.write_text(json.dumps(PMP))
-        sdp = Path(tmp) / "sdp.zip"
-        # the converter a user runs before sdpb, in its own process
-        subprocess.run([sys.executable, "-m", "sdpb_tpu.cli.sdp2input",
-                        "-i", str(pmp), "-o", str(sdp), "--precision", "400",
-                        "--outputFormat", "json"], cwd=ROOT, check=True,
-                       timeout=300, stdout=subprocess.DEVNULL)
         out = Path(tmp) / "out"
         kernels.reset_launches()
         t0 = time.time()
-        res = cli.run(["-s", str(sdp), "-o", str(out), "--device", str(dev),
-                       "--precision", "150", "--dualityGapThreshold", "1e-12",
-                       "--primalErrorThreshold", "1e-12",
-                       "--dualErrorThreshold", "1e-12",
-                       "--initialMatrixScalePrimal", "1e2",
-                       "--initialMatrixScaleDual", "1e2",
-                       "--maxIterations", "250", "--verbosity", "0"])
+        res = cli.run(["-s", str(CERTIFICATE), "-o", str(out), "--device", str(dev),
+                       "--precision", "150", *SOLVE_FLAGS,
+                       "--arithmetic", "scaled" if scaled else "classic"])
         dt = time.time() - t0
         launches = dict(kernels.LAUNCHES)
         check((out / "out.txt").exists(), "out.txt not written")
         with mpmath.workprec(300):
-            y = _mpf(res.state.y.limbs[:, 0].cpu().numpy())
+            y = _y_value(res)
             dy = abs(y - mpmath.mpf(Y_OPT))
         print(f"{res.terminate_reason} after {res.iterations} iterations in "
               f"{dt:.1f} s; y* = {mpmath.nstr(y, 25)}, |y* - y_opt| = "
@@ -302,25 +421,30 @@ def certificate_phase(torch, kernels, cli, dev):
     check(str(res.terminate_reason) == "found primal-dual optimal solution",
           f"certificate solve ended with {res.terminate_reason}")
     check(dy < mpmath.mpf("1e-10"), f"y* off by {dy}")
-    check(all(v > 0 for v in launches.values()), f"a kernel did not run: {launches}")
+    path = [kernels.counter(n, scaled) for n in kernels.KERNEL_NAMES]
+    check(all(launches[n] > 0 for n in path), f"a kernel did not run: {launches}")
     return {"iterations": res.iterations, "seconds": dt, "dy": float(dy)}
 
 
-def ladder_phase(torch, kernels, cli, dev):
-    phase(f"6. ising ladder, 120 blocks, 216 bits, {LADDER_ITERATIONS} iterations")
+def ladder_phase(torch, kernels, cli, dev, scaled, classic=None):
+    from sdpb_tpu_torch.solver.solve import host_mpf
+    import mpmath
     import numpy as np
+    if scaled:
+        # --precision 208 takes 9 float32 limbs (216 bits of mantissa, with
+        # the 8 guard bits); 216 would need 10, the unported wide path
+        phase(f"9. ising ladder, scaled, 9 float32 limbs (216 bits), "
+              f"{LADDER_ITERATIONS} iterations")
+        prec = ["--precision", "208", "--arithmetic", "scaled"]
+    else:
+        phase(f"6. ising ladder, 120 blocks, 216 bits, {LADDER_ITERATIONS} iterations")
+        prec = ["--precision", "216"]
     with tempfile.TemporaryDirectory() as tmp:
         kernels.reset_launches()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.time()
         res = cli.run(["-s", str(LADDER), "-o", str(Path(tmp) / "out"),
-                       "--device", str(dev), "--precision", "216",
-                       "--dualityGapThreshold", "1e-20",
-                       "--primalErrorThreshold", "1e-20",
-                       "--dualErrorThreshold", "1e-20",
-                       "--initialMatrixScalePrimal", "1e4",
-                       "--initialMatrixScaleDual", "1e4",
-                       "--maxIterations", str(LADDER_ITERATIONS)])
+                       "--device", str(dev), *prec, *LADDER_FLAGS])
         wall = time.time() - t0
         launches = dict(kernels.LAUNCHES)
         peak = torch.cuda.max_memory_allocated(dev)
@@ -328,10 +452,12 @@ def ladder_phase(torch, kernels, cli, dev):
     check(len(hist) >= LADDER_ITERATIONS, f"only {len(hist)} iterations ran")
     for i, st in enumerate(hist):
         for name in st._fields:
-            check(np.all(np.isfinite(np.asarray(getattr(st, name), dtype=float))),
+            v = getattr(st, name)
+            v = v[0] if isinstance(v, tuple) else v
+            check(np.all(np.isfinite(np.asarray(v, dtype=float))),
                   f"iteration {i + 1}: {name} not finite")
         check(st.primal_step > 0 and st.dual_step > 0, f"iteration {i + 1}: step <= 0")
-    mus = [float(_mpf(st.mu)) for st in hist]
+    mus = [float(host_mpf(st.mu)) for st in hist]
     check(all(b < a for a, b in zip(mus, mus[1:])), f"mu does not fall: {mus}")
     its = res.iteration_seconds
     steady = sorted(its[1:])[len(its[1:]) // 2] if len(its) > 1 else its[0]
@@ -340,12 +466,34 @@ def ladder_phase(torch, kernels, cli, dev):
           f"steady median {steady:.3f} s/iteration; peak device memory "
           f"{peak / 2**30:.2f} GiB; launches {launches}")
     print(f"mu: {' '.join(f'{m:.3e}' for m in mus)}")
-    check(all(v > 0 for v in launches.values()), f"a kernel did not run: {launches}")
-    return {"launches": launches, "s_per_it": steady, "peak_bytes": peak}
+    path = [kernels.counter(n, scaled) for n in kernels.KERNEL_NAMES]
+    check(all(launches[n] > 0 for n in path), f"a kernel did not run: {launches}")
+    out = {"launches": launches, "s_per_it": steady, "peak_bytes": peak, "history": hist}
+    if classic is not None:
+        # significant digits the objectives share with the classic run,
+        # the least over iterations and over the two objectives
+        digits = math.inf
+        same_steps = 0
+        with mpmath.workprec(400):
+            for mine, ref in zip(hist, classic["history"]):
+                same_steps += (mine.primal_step, mine.dual_step) == \
+                    (ref.primal_step, ref.dual_step)
+                for f in ("primal_objective", "dual_objective"):
+                    a, b = host_mpf(getattr(mine, f)), host_mpf(getattr(ref, f))
+                    if a != b:
+                        digits = min(digits, float(-mpmath.log10(abs(a - b) / abs(b))))
+        print(f"objectives agree with the classic run to {digits:.1f} significant "
+              f"digits over {len(hist)} iterations, step lengths identical in "
+              f"{same_steps}; s/iteration scaled {steady:.3f} vs classic "
+              f"{classic['s_per_it']:.3f}")
+        check(digits >= 15, f"scaled objectives share only {digits:.1f} digits")
+        out["digits"] = digits
+    return out
 
 
 def main():
-    if not (ROOT / "sdpb_tpu_torch").is_dir() or not LADDER.exists():
+    if not (ROOT / "sdpb_tpu_torch").is_dir() or not LADDER.exists() \
+            or not CERTIFICATE.exists():
         print("chip_smoke.py must run from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -358,27 +506,39 @@ def main():
     from sdpb_tpu_torch.cli import sdpb as cli
     from sdpb_tpu_torch.ops import kernels, mpfloat as mp
 
+    t_start = time.time()
     smi = device_phase(torch)
     build_s = build_phase(kernels)
     exactness_phase(torch, mp, kernels, dev)
-    rows = kernel_phase(torch, mp, kernels, dev)
-    cert = certificate_phase(torch, kernels, cli, dev)
-    ladder = ladder_phase(torch, kernels, cli, dev)
+    rows = kernel_phase(torch, mp, kernels, dev, scaled=False)
+    cert = certificate_phase(torch, kernels, cli, dev, scaled=False)
+    ladder = ladder_phase(torch, kernels, cli, dev, scaled=False)
+    srows = kernel_phase(torch, mp, kernels, dev, scaled=True)
+    scert = certificate_phase(torch, kernels, cli, dev, scaled=True)
+    sladder = ladder_phase(torch, kernels, cli, dev, scaled=True, classic=ladder)
     check("jax" not in sys.modules, "the port imported jax")
+    check(not any(m == "sdpb_tpu" or m.startswith("sdpb_tpu.") for m in sys.modules),
+          "the port imported the JAX package")
 
     record = []
-    for name, (source, replaces) in KERNELS.items():
-        mine = [r for r in rows if r[0] == name]
-        first = mine[-1] if name == "mp_matmul" else mine[0]
-        record.append({"name": name, "route": "cuda", "source": source,
-                       "replaces": replaces,
-                       "launches": ladder["launches"][name],
-                       "max_abs_err": max(r[2] for r in mine),
-                       "ms": first[4], "plain_ms": first[5]})
+    for scaled, krows, run in ((False, rows, ladder), (True, srows, sladder)):
+        for name, (source, replaces) in KERNELS.items():
+            mine = [r for r in krows if r[0] == name]
+            first = mine[-1] if name == "mp_matmul" else mine[0]
+            key = kernels.counter(name, scaled)
+            record.append({"name": key, "route": "cuda", "source": source,
+                           "replaces": replaces, "launches": run["launches"][key],
+                           "max_abs_err": max(r[2] for r in mine),
+                           "ms": first[4], "plain_ms": first[5],
+                           "bound_ms": first[6], "bound_by": first[7],
+                           "library_ms": None})
     print(f"\nsummary: build {build_s:.1f} s; certificate {cert['iterations']} "
-          f"iterations, |y*-y_opt| {cert['dy']:.2e}; ladder "
-          f"{ladder['s_per_it']:.3f} s/iteration, peak "
-          f"{ladder['peak_bytes'] / 2**30:.2f} GiB")
+          f"iterations classic, {scert['iterations']} scaled; ladder "
+          f"{ladder['s_per_it']:.3f} s/iteration classic (K=5), "
+          f"{sladder['s_per_it']:.3f} scaled (K=9); peak "
+          f"{ladder['peak_bytes'] / 2**30:.2f} / {sladder['peak_bytes'] / 2**30:.2f} GiB; "
+          f"objectives shared to {sladder['digits']:.1f} digits; "
+          f"total {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

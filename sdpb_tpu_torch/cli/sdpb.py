@@ -1,12 +1,16 @@
 """`sdpb` on one PyTorch device: solve a preprocessed SDP.
 
-    python -m sdpb_tpu_torch.cli.sdpb -s sdp.zip --precision 216 [--device cuda]
+    python -m sdpb_tpu_torch.cli.sdpb -s sdp.zip --precision 216 \
+        [--arithmetic classic|scaled] [--device cuda|cpu]
 
-Same solver flags and the same output files as `python -m
-sdpb_tpu.cli.sdpb`.  The device defaults to `cuda` and is never chosen
-silently: without CUDA the run stops unless `--device cpu` is given.
-Checkpoints are not written yet, and resuming one or running several
-processes is refused.
+Same solver flags and the same output files as the JAX package's CLI
+(sdpb_tpu/cli/sdpb.py).  `--arithmetic` picks the representation, which the
+JAX CLI picks by platform: classic float64 limbs (the default; any
+precision) or scaled float32 limbs with an int32 exponent per element (at
+most 9 limbs, 216 bits; the wide representation beyond is not ported).
+The device defaults to `cuda` and is never chosen silently: without CUDA
+the run stops unless `--device cpu` is given.  Checkpoints are not written
+yet, and resuming one or running several processes is refused.
 """
 from __future__ import annotations
 
@@ -17,15 +21,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from sdpb_tpu.cli.common import (add_solver_options, parse_with_param_file,
-                                 solver_params_from_args)
+from .common import add_solver_options, parse_with_param_file, solver_params_from_args
 
 _REFUSED = ("initialCheckpointDir", "coordinator", "numProcesses", "processId")
 
 
-def limbs_for_precision(precision_bits: int) -> int:
-    """float64 limbs for `precision_bits` of significand (8 guard bits)."""
-    return max(2, -(-(precision_bits + 8) // 53))
+def limbs_for_precision(precision_bits: int, mant_bits: int = 53) -> int:
+    """Limbs of `mant_bits` for `precision_bits` of significand (8 guard
+    bits; sdpb_tpu/utils/platform.py:50-60)."""
+    return max(2, -(-(precision_bits + 8) // mant_bits))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -53,6 +57,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to solve on (default cuda; 'cpu' only "
                         "when asked for by name).")
+    p.add_argument("--arithmetic", choices=("classic", "scaled"), default="classic",
+                   help="MP representation: classic float64 limbs (any "
+                        "precision) or scaled float32 limbs with an int32 "
+                        "exponent per element (up to 216 bits).")
     for name in _REFUSED:
         p.add_argument(f"--{name}", default=None, help=argparse.SUPPRESS)
     add_solver_options(p)
@@ -75,38 +83,55 @@ def run(argv=None):
             raise SystemExit(f"--{name} is not supported by the PyTorch port "
                              f"yet (no checkpoints, one process, one device)")
     params = solver_params_from_args(args)
+    scaled_limbs = 0
+    if args.arithmetic == "scaled":
+        scaled_limbs = limbs_for_precision(params.precision, 24)
+        if scaled_limbs > 9:
+            raise SystemExit(
+                f"--precision {params.precision} needs {scaled_limbs} scaled "
+                f"float32 limbs; the scaled representation holds at most 9 "
+                f"(216 bits), and the wide one beyond it is not ported "
+                f"(ROADMAP B5).  Use --arithmetic classic.")
     device = resolve_device(args.device)
 
-    from sdpb_tpu.io.sdp_zip import read_sdp
-    from sdpb_tpu.utils.timers import Timers
-
+    from ..io.sdp_zip import read_sdp
     from ..io.solution import WriteSolution, mp_str, save_solution
     from ..models.sdp import build_device_sdp
     from ..solver.solve import run_solver
+    from ..utils.timers import Timers
 
     sdp_path = args.sdpDir
     base = sdp_path[:-4] if sdp_path.endswith(".zip") else sdp_path
     out_dir = Path(args.outDir or (base + "_out"))
     write_solution = WriteSolution.parse(args.writeSolution)
     verbosity = args.verbosity
-    K = limbs_for_precision(params.precision)
+    if scaled_limbs:
+        K = -(-(24 * scaled_limbs) // 53) + 1      # float64 host limbs
+        mant_bits, K_dev = 24, scaled_limbs
+    else:
+        K = limbs_for_precision(params.precision)
+        mant_bits, K_dev = 53, K
     if verbosity >= 1:
         print("SDPB PyTorch solver")
         print(f"SDP directory   : {sdp_path}")
         print(f"out directory   : {out_dir}")
-        print(f"precision       : {params.precision} bits ({K} x float64 limbs)")
+        if scaled_limbs:
+            print(f"precision       : {params.precision} bits ({scaled_limbs} "
+                  f"scaled float32 limbs + exponent)")
+        else:
+            print(f"precision       : {params.precision} bits ({K} x float64 limbs)")
         name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
         print(f"device          : {device} ({name})")
 
     timers = Timers()
     with timers.scope("read_sdp"):
         host = read_sdp(sdp_path, K, np.float64)
-    sdp = build_device_sdp(host, device)
+    sdp = build_device_sdp(host, device, scaled_limbs=scaled_limbs)
     result = run_solver(sdp, params, verbosity=verbosity, timers=timers)
 
     if verbosity >= 1:
         print(f"-----{result.terminate_reason}-----")
-        nd = int(53 * K * 0.30103) + 1
+        nd = int(mant_bits * K_dev * 0.30103) + 1
         print(f"primalObjective = {mp_str(result.primal_objective, nd)}")
         print(f"dualObjective   = {mp_str(result.dual_objective, nd)}")
         print(f"dualityGap      = {mp_str(result.duality_gap, nd)}")

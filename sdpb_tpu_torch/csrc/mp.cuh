@@ -1,39 +1,53 @@
-// Multi-limb (MP) float64 arithmetic inside the CUDA kernels.
+// Multi-limb (MP) arithmetic inside the CUDA kernels: the error-free
+// transforms and renormalization shared by both representations, and the
+// classic float64 representation (namespace mpk).
 //
 // The CUDA counterpart of sdpb_tpu/ops/mplist.py, classic path: a value is
 // an unevaluated sum of K float64 limbs.  Every function performs the same
-// sequence of IEEE float64 operations as mplist.py (and as the plain PyTorch
+// sequence of IEEE operations as mplist.py (and as the plain PyTorch
 // versions in ops/kernels.py), so results agree limb for limb.  That rests
-// on two build rules: -fmad=false (no multiply-add contraction anywhere;
-// a contracted TwoProd or TwoSum silently loses the error term) and the
-// default -prec-div=true -prec-sqrt=true (correctly rounded seeds).  Never
-// build with --use_fast_math.
+// on the build rules: -fmad=false (no multiply-add contraction anywhere;
+// a contracted TwoProd or TwoSum silently loses the error term),
+// -prec-div=true -prec-sqrt=true (correctly rounded seeds) and -ftz=false
+// (subnormals kept, as torch keeps them on the CPU).  Never build with
+// --use_fast_math.
+//
+// The kernels are written once against a representation namespace `ar`:
+// mpk here (-DMP_SCALED=0), mps of mp_scaled.cuh (-DMP_SCALED=1).  Both
+// offer Limb, Val<K>, zero, load, store, add, sub, mul, rsqrt and
+// reciprocal; a value is stored limb-major (limb k of element idx at
+// x[k * stride + idx]) with, when scaled, its exponent at e[idx].
 #pragma once
 
 #include <cuda_runtime.h>
 
+#ifndef MP_K
+#error "build with -DMP_K=<limbs>, 2 <= MP_K <= 9"
+#endif
+static_assert(MP_K >= 2 && MP_K <= 9, "MP_K must lie in 2..9");
+#ifndef MP_SCALED
+#define MP_SCALED 0
+#endif
+
 namespace mpk {
 
-template <int K>
-struct MPv {
-  double x[K];
-};
-
 // Knuth TwoSum: s + e == a + b exactly.
-__device__ __forceinline__ void two_sum(double a, double b, double& s, double& e) {
+template <typename T>
+__device__ __forceinline__ void two_sum(T a, T b, T& s, T& e) {
   s = a + b;
-  double v = s - a;
+  T v = s - a;
   e = (a - (s - v)) + (b - v);
 }
 
 // Fast TwoSum: requires |a| >= |b| or a == 0.
-__device__ __forceinline__ void quick_two_sum(double a, double b, double& s, double& e) {
+template <typename T>
+__device__ __forceinline__ void quick_two_sum(T a, T b, T& s, T& e) {
   s = a + b;
   e = b - (s - a);
 }
 
-// Dekker split in the contraction-immune form t = fl(2^27 a + a)
-// (sdpb_tpu/ops/eft.py:55-66).
+// Dekker split in the contraction-immune form t = fl(2^s a + a), s = 27 for
+// float64 and 12 for float32 (sdpb_tpu/ops/eft.py:20-66).
 __device__ __forceinline__ void split(double a, double& hi, double& lo) {
   double w = 134217728.0 * a;
   double t = w + a;
@@ -41,19 +55,26 @@ __device__ __forceinline__ void split(double a, double& hi, double& lo) {
   lo = a - hi;
 }
 
-// Distillation renorm of M raw terms into K limbs (mplist.renorm_list,
-// mpfloat._sweep_unrolled + compaction): K bottom-up TwoSum sweeps, the
-// residue chain-summed into slot K, then a top-down and a bottom-up
-// quick-two-sum compaction.
-template <int K, int M>
-__device__ __forceinline__ MPv<K> renorm(double (&xs)[M]) {
+__device__ __forceinline__ void split(float a, float& hi, float& lo) {
+  float w = 4096.0f * a;
+  float t = w + a;
+  hi = t - (t - a);
+  lo = a - hi;
+}
+
+// Distillation renorm of M raw terms, in place, leaving K limbs in
+// xs[0..K-1] (mplist.renorm_list, mpfloat._sweep_unrolled + compaction):
+// K bottom-up TwoSum sweeps, the residue chain-summed into slot K, then a
+// top-down and a bottom-up quick-two-sum compaction.
+template <int K, int M, typename T>
+__device__ __forceinline__ void renorm_terms(T (&xs)[M]) {
   static_assert(M >= K + 2, "renorm needs at least K + 2 terms");
 #pragma unroll
   for (int k = 0; k < K; ++k) {
 #pragma unroll
     for (int i = M - 2; i >= k; --i) two_sum(xs[i], xs[i + 1], xs[i], xs[i + 1]);
   }
-  double s = xs[M - 1];
+  T s = xs[M - 1];
 #pragma unroll
   for (int i = M - 2; i >= K; --i) s = s + xs[i];
   xs[K] = s;
@@ -61,11 +82,73 @@ __device__ __forceinline__ MPv<K> renorm(double (&xs)[M]) {
   for (int i = 0; i < K; ++i) quick_two_sum(xs[i], xs[i + 1], xs[i], xs[i + 1]);
 #pragma unroll
   for (int i = K - 1; i > 0; --i) quick_two_sum(xs[i - 1], xs[i], xs[i - 1], xs[i]);
-  MPv<K> r;
-#pragma unroll
-  for (int i = 0; i < K; ++i) r.x[i] = xs[i];
-  return r;
 }
+
+// The truncated product's K*K+1 terms in mplist order: exact TwoProds for
+// i+j <= K-1, their errors for i+j <= K-2, a chained plain-product tail for
+// i+j == K; diagonal n lists the errors of diagonal n-1, then its own
+// products; the tail comes last.  put(term, n) places a term whose product
+// lies on diagonal n (identity for classic limbs).
+template <int K, typename T, typename Put>
+__device__ __forceinline__ void mul_terms(const T (&a)[K], const T (&b)[K],
+                                          T (&xs)[K * K + 1], Put put) {
+  T ah[K], al[K], bh[K], bl[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    split(a[i], ah[i], al[i]);
+    split(b[i], bh[i], bl[i]);
+  }
+  T p[K][K], e[K][K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      if (i + j <= K - 1) {
+        p[i][j] = a[i] * b[j];
+        if (i + j <= K - 2)
+          e[i][j] = ((ah[i] * bh[j] - p[i][j]) + ah[i] * bl[j] + al[i] * bh[j]) +
+                    al[i] * bl[j];
+      }
+    }
+  }
+  int t = 0;
+#pragma unroll
+  for (int n = 0; n < K; ++n) {
+#pragma unroll
+    for (int i = 0; i < n; ++i) xs[t++] = put(e[i][n - 1 - i], n - 1);
+#pragma unroll
+    for (int i = 0; i <= n; ++i) xs[t++] = put(p[i][n - i], n);
+  }
+  T tail = a[1] * b[K - 1];
+#pragma unroll
+  for (int i = 2; i < K; ++i) tail = tail + a[i] * b[K - i];
+  xs[t] = put(tail, K);
+}
+
+// Newton steps: limbs of accuracy double per step from one, plus one.
+template <int K>
+__host__ __device__ constexpr int newton_steps() {
+  int n = 0;
+  int acc = 1;
+  while (acc < K) {
+    acc *= 2;
+    ++n;
+  }
+  return n + 1;
+}
+
+// ---------------------------------------------------------------------------
+// Classic representation: value = sum of K float64 limbs.
+
+using Limb = double;
+
+template <int K>
+struct MPv {
+  double x[K];
+};
+
+template <int K>
+using Val = MPv<K>;
 
 template <int K>
 __device__ __forceinline__ MPv<K> zero() {
@@ -91,6 +174,15 @@ __device__ __forceinline__ MPv<K> neg(const MPv<K>& a) {
   return r;
 }
 
+template <int K, int M>
+__device__ __forceinline__ MPv<K> renorm(double (&xs)[M]) {
+  renorm_terms<K, M>(xs);
+  MPv<K> r;
+#pragma unroll
+  for (int i = 0; i < K; ++i) r.x[i] = xs[i];
+  return r;
+}
+
 // a + b: limbs interleaved a0 b0 a1 b1 ..., then renorm (mplist.add).
 template <int K>
 __device__ __forceinline__ MPv<K> add(const MPv<K>& a, const MPv<K>& b) {
@@ -108,57 +200,12 @@ __device__ __forceinline__ MPv<K> sub(const MPv<K>& a, const MPv<K>& b) {
   return add<K>(a, neg<K>(b));
 }
 
-// Truncated product (mplist._mul_terms_classic + mul): exact TwoProds for
-// i+j <= K-1, their errors for i+j <= K-2, a chained plain-product tail for
-// i+j == K.  Term order: diagonal n lists the errors of diagonal n-1, then
-// its own products; the tail comes last.
+// Truncated product (mplist._mul_terms_classic + mul).
 template <int K>
 __device__ __forceinline__ MPv<K> mul(const MPv<K>& a, const MPv<K>& b) {
-  double ah[K], al[K], bh[K], bl[K];
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    split(a.x[i], ah[i], al[i]);
-    split(b.x[i], bh[i], bl[i]);
-  }
-  double p[K][K], e[K][K];
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      if (i + j <= K - 1) {
-        p[i][j] = a.x[i] * b.x[j];
-        if (i + j <= K - 2)
-          e[i][j] = ((ah[i] * bh[j] - p[i][j]) + ah[i] * bl[j] + al[i] * bh[j]) +
-                    al[i] * bl[j];
-      }
-    }
-  }
   double xs[K * K + 1];
-  int t = 0;
-#pragma unroll
-  for (int n = 0; n < K; ++n) {
-#pragma unroll
-    for (int i = 0; i < n; ++i) xs[t++] = e[i][n - 1 - i];
-#pragma unroll
-    for (int i = 0; i <= n; ++i) xs[t++] = p[i][n - i];
-  }
-  double tail = a.x[1] * b.x[K - 1];
-#pragma unroll
-  for (int i = 2; i < K; ++i) tail = tail + a.x[i] * b.x[K - i];
-  xs[t] = tail;
+  mul_terms<K>(a.x, b.x, xs, [](double v, int) { return v; });
   return renorm<K, K * K + 1>(xs);
-}
-
-// Newton steps: limbs of accuracy double per step from one, plus one.
-template <int K>
-__host__ __device__ constexpr int newton_steps() {
-  int n = 0;
-  int acc = 1;
-  while (acc < K) {
-    acc *= 2;
-    ++n;
-  }
-  return n + 1;
 }
 
 // 1/sqrt(a) for a > 0: r <- r (3/2 - a r^2 / 2), seeded with the correctly
@@ -190,24 +237,28 @@ __device__ __forceinline__ MPv<K> reciprocal(const MPv<K>& a) {
   return r;
 }
 
-// Limb-major storage: limb k of element idx lives at p[k * stride + idx].
+// Limb-major storage; classic values have no exponent array.
 template <int K>
-__device__ __forceinline__ MPv<K> load(const double* p, size_t stride) {
+__device__ __forceinline__ MPv<K> load(const double* x, const int*, size_t stride,
+                                       size_t idx) {
   MPv<K> r;
 #pragma unroll
-  for (int k = 0; k < K; ++k) r.x[k] = p[k * stride];
+  for (int k = 0; k < K; ++k) r.x[k] = x[k * stride + idx];
   return r;
 }
 
 template <int K>
-__device__ __forceinline__ void store(double* p, size_t stride, const MPv<K>& v) {
+__device__ __forceinline__ void store(double* x, int*, size_t stride, size_t idx,
+                                      const MPv<K>& v) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) p[k * stride] = v.x[k];
+  for (int k = 0; k < K; ++k) x[k * stride + idx] = v.x[k];
 }
 
 }  // namespace mpk
 
-#ifndef MP_K
-#error "build with -DMP_K=<limbs>, 2 <= MP_K <= 9"
+#if MP_SCALED
+#include "mp_scaled.cuh"
+namespace ar = mps;
+#else
+namespace ar = mpk;
 #endif
-static_assert(MP_K >= 2 && MP_K <= 9, "MP_K must lie in 2..9");

@@ -1,13 +1,17 @@
 // Batched MP triangular solve: X = T^{-1} Bm for triangular T[K,B,n,n] and
-// Bm[K,B,n,m] in K-limb float64; lower T solves forward, upper T (the
-// caller passes L^T) backward.
+// Bm[K,B,n,m] in K-limb MP arithmetic, classic (float64 limbs) or scaled
+// (float32 limbs and an int32 exponent per element), one library per
+// (K, representation); lower T solves forward, upper T (the caller passes
+// L^T) backward.
 //
-// Replaces sdpb_tpu/ops/pallas_kernels.py::_trsm_kernel (classic mode).
-// Right-looking substitution in the TPU kernel's order: the diagonal
-// reciprocals 1/T[i,i] are computed once (one Newton chain per row); then
-// for each pivot row i (ascending for lower T, descending for upper T) the
-// solved row is x_i = Bres[i,:] * dinv_i, and it is eliminated at once from
-// the rows still to come, Bres[r,c] -= T[r,i] * x_i[c].
+// Replaces sdpb_tpu/ops/pallas_kernels.py::_trsm_kernel, both branches
+// (scaled=False and scaled=True).  Right-looking substitution in the TPU
+// kernel's order: the diagonal reciprocals 1/T[i,i] are computed once (one
+// Newton chain per row; scaled, from the diagonal's own exponents, which
+// the TPU kernel extracts with a masked sum); then for each pivot row i
+// (ascending for lower T, descending for upper T) the solved row is
+// x_i = Bres[i,:] * dinv_i, and it is eliminated at once from the rows
+// still to come, Bres[r,c] -= T[r,i] * x_i[c].
 //
 // What bounds it on an H100: latency.  The n pivots are strictly
 // sequential, and each does only m (solve) plus (n-1-i) m (elimination)
@@ -21,36 +25,36 @@ namespace {
 
 template <int K>
 __global__ void __launch_bounds__(256)
-mp_trsm_kernel(const double* __restrict__ T, const double* __restrict__ Bm,
-               double* __restrict__ R, double* __restrict__ dinv,
-               double* __restrict__ X, int B, int n, int m, int lower) {
+mp_trsm_kernel(const ar::Limb* __restrict__ T, const int* __restrict__ Te,
+               const ar::Limb* __restrict__ Bm, const int* __restrict__ Bme,
+               ar::Limb* __restrict__ R, int* __restrict__ Re,
+               ar::Limb* __restrict__ D, int* __restrict__ De,
+               ar::Limb* __restrict__ X, int* __restrict__ Xe,
+               int B, int n, int m, int lower) {
   const size_t nn = (size_t)n * n;
   const size_t nm = (size_t)n * m;
   const size_t ts = (size_t)B * nn;  // limb strides
   const size_t bs = (size_t)B * nm;
   const size_t ds = (size_t)B * n;
-  const double* Tb = T + (size_t)blockIdx.x * nn;
-  const double* Bb = Bm + (size_t)blockIdx.x * nm;
-  double* Rb = R + (size_t)blockIdx.x * nm;
-  double* Db = dinv + (size_t)blockIdx.x * n;
-  double* Xb = X + (size_t)blockIdx.x * nm;
+  const size_t tb = (size_t)blockIdx.x * nn;  // this block's first elements
+  const size_t bb = (size_t)blockIdx.x * nm;
+  const size_t db = (size_t)blockIdx.x * n;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
 
-  for (size_t idx = tid; idx < nm; idx += nt) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) Rb[k * bs + idx] = Bb[k * bs + idx];
-  }
+  for (size_t idx = tid; idx < nm; idx += nt)
+    ar::store<K>(R, Re, bs, bb + idx, ar::load<K>(Bm, Bme, bs, bb + idx));
   for (int i = tid; i < n; i += nt)
-    mpk::store<K>(Db + i, ds, mpk::reciprocal<K>(mpk::load<K>(Tb + (size_t)i * n + i, ts)));
+    ar::store<K>(D, De, ds, db + i,
+                 ar::reciprocal<K>(ar::load<K>(T, Te, ts, tb + (size_t)i * n + i)));
   __syncthreads();
 
   for (int step = 0; step < n; ++step) {
     const int i = lower ? step : n - 1 - step;
-    const mpk::MPv<K> di = mpk::load<K>(Db + i, ds);
+    const ar::Val<K> di = ar::load<K>(D, De, ds, db + i);
     for (int c = tid; c < m; c += nt) {
-      const size_t ic = (size_t)i * m + c;
-      mpk::store<K>(Xb + ic, bs, mpk::mul<K>(mpk::load<K>(Rb + ic, bs), di));
+      const size_t ic = bb + (size_t)i * m + c;
+      ar::store<K>(X, Xe, bs, ic, ar::mul<K>(ar::load<K>(R, Re, bs, ic), di));
     }
     __syncthreads();
     const int r0 = lower ? i + 1 : 0;
@@ -58,10 +62,10 @@ mp_trsm_kernel(const double* __restrict__ T, const double* __restrict__ Bm,
     for (int q = tid; q < nrows * m; q += nt) {
       const int r = r0 + q / m;
       const int c = q % m;
-      const mpk::MPv<K> t = mpk::load<K>(Tb + (size_t)r * n + i, ts);
-      const mpk::MPv<K> x = mpk::load<K>(Xb + (size_t)i * m + c, bs);
-      const size_t rc = (size_t)r * m + c;
-      mpk::store<K>(Rb + rc, bs, mpk::sub<K>(mpk::load<K>(Rb + rc, bs), mpk::mul<K>(t, x)));
+      const ar::Val<K> t = ar::load<K>(T, Te, ts, tb + (size_t)r * n + i);
+      const ar::Val<K> x = ar::load<K>(X, Xe, bs, bb + (size_t)i * m + c);
+      const size_t rc = bb + (size_t)r * m + c;
+      ar::store<K>(R, Re, bs, rc, ar::sub<K>(ar::load<K>(R, Re, bs, rc), ar::mul<K>(t, x)));
     }
     __syncthreads();
   }
@@ -69,11 +73,13 @@ mp_trsm_kernel(const double* __restrict__ T, const double* __restrict__ Bm,
 
 }  // namespace
 
-extern "C" int mp_trsm_launch(const void* T, const void* Bm, void* R, void* dinv,
-                              void* X, int B, int n, int m, int lower,
+extern "C" int mp_trsm_launch(const void* T, const void* Te, const void* Bm,
+                              const void* Bme, void* R, void* Re, void* D, void* De,
+                              void* X, void* Xe, int B, int n, int m, int lower,
                               void* stream) {
   mp_trsm_kernel<MP_K><<<B, 256, 0, (cudaStream_t)stream>>>(
-      (const double*)T, (const double*)Bm, (double*)R, (double*)dinv, (double*)X,
-      B, n, m, lower);
+      (const ar::Limb*)T, (const int*)Te, (const ar::Limb*)Bm, (const int*)Bme,
+      (ar::Limb*)R, (int*)Re, (ar::Limb*)D, (int*)De, (ar::Limb*)X, (int*)Xe, B, n,
+      m, lower);
   return (int)cudaGetLastError();
 }

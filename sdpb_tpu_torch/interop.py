@@ -3,7 +3,10 @@
 The inputs are the JAX package's `DeviceSDP` / `SolverState` with numpy
 leaves (e.g. `jax.tree.map(np.asarray, x)` on the JAX side), read here by
 attribute only, so this module never imports JAX yet both packages can
-iterate from the same problem and state.  Classic float64 limbs only.
+iterate from the same problem and state.  Classic values carry float64
+limbs; scaled values (limbs, exp) carry float32 limbs and int32 exponents,
+masks then float32.  The wide representation (`MPW`, a tuple of words) is
+refused.
 """
 from __future__ import annotations
 
@@ -16,13 +19,21 @@ from .solver.state import BucketState, SolverState
 
 
 def _t(x, device) -> torch.Tensor:
-    return torch.tensor(np.asarray(x, dtype=np.float64), device=device)
+    """A host array as a tensor (a copy) in its own float type."""
+    x = np.asarray(x)
+    if x.dtype not in (np.float32, np.float64):
+        x = x.astype(np.float64)
+    return torch.tensor(x, device=device)
 
 
 def _mp(x, device) -> MP:
+    if hasattr(x, "words"):
+        raise TypeError("wide (MPW) values do not carry across: the wide "
+                        "representation is not ported")
     if getattr(x, "exp", None) is not None:
-        raise TypeError("only classic (exponent-free) MP values carry across")
-    return MP(_t(x.limbs, device))
+        return MP(torch.tensor(np.asarray(x.limbs, dtype=np.float32), device=device),
+                  torch.tensor(np.asarray(x.exp, dtype=np.int32), device=device))
+    return MP(torch.tensor(np.asarray(x.limbs, dtype=np.float64), device=device))
 
 
 def device_sdp_from_numpy(sdp, device) -> DeviceSDP:

@@ -1,10 +1,11 @@
 """Solution output: out.txt, y.txt, x_<i>.txt and X/Y_matrix_<i>.txt in the
 format of sdpb_tpu/io/solution.py (and of the reference's save_solution).
 
-Values are written from classic float64 limbs re-distilled to K + 1 limbs
-(mpfloat.host_f64_limbs) through sdpb_tpu.utils.strings.limbs_to_str and
-sdpb_tpu/io/text_blocks.py, so both packages print the same digits for the
-same limbs.
+Values are written from classic float64 limbs (mpfloat.host_f64_limbs:
+classic limbs re-distilled to K + 1, scaled parts converted exactly to
+ceil(24K/53) + 1) through the port's copies of limbs_to_str and
+write_text_matrix, so both packages print the same digits for the same
+values.
 """
 from __future__ import annotations
 
@@ -15,11 +16,10 @@ from typing import Dict
 import mpmath
 import numpy as np
 
-from sdpb_tpu.io.text_blocks import write_text_matrix
-
 from ..models.sdp import DeviceSDP
 from ..ops import mpfloat as mp
 from ..solver.state import SolverState
+from .text_blocks import write_text_matrix
 
 
 @dataclass(frozen=True)
@@ -97,7 +97,7 @@ def save_solution(out_dir, result, sdp: DeviceSDP,
         print(f"Saving solution to      : {out_dir}")
     out_dir.mkdir(parents=True, exist_ok=True)
     state = result.state
-    ndigits = int(53 * state.y.K * 0.30103) + 1
+    ndigits = int((24 if state.y.scaled else 53) * state.y.K * 0.30103) + 1
     (out_dir / "out.txt").write_text(
         f'terminateReason = "{result.terminate_reason}";\n'
         f"primalObjective = {mp_str(result.primal_objective, ndigits)};\n"

@@ -1,5 +1,6 @@
 """Device-side SDP problem: shape-bucketed, batched blocks (port of
-sdpb_tpu/models/sdp.py, classic float64 staging, one device).
+sdpb_tpu/models/sdp.py, one device), staged as classic float64 limbs or in
+the scaled representation (float32 limbs and int32 exponents).
 
 Blocks with equal dim and num_points in the same QUANT band share a
 bucket; each is zero-padded to the bucket's (num_points, h_even, h_odd)
@@ -17,8 +18,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from sdpb_tpu.io.sdp_zip import SDPData
-
+from ..io.sdp_zip import SDPData
+from ..ops import mpfloat as mp
 from ..ops.mpfloat import MP
 
 QUANT = 8
@@ -58,7 +59,7 @@ class Bucket:
     emb_odd: MP                 # [B, m*h_o, m*np]
     Bmat: MP                    # [B, P, N]
     c: MP                       # [B, P]
-    mask: torch.Tensor          # [B] 1.0 per real block
+    mask: torch.Tensor          # [B] 1.0 per real block (masks in the limb dtype)
     row_mask: torch.Tensor      # [B, P]
     psd_mask_even: torch.Tensor  # [B, m*h_e]
     psd_mask_odd: torch.Tensor   # [B, m*h_o]
@@ -109,22 +110,35 @@ def bucket_key(dim: int, num_points: int) -> tuple:
     return (dim, -(-num_points // QUANT) * QUANT)
 
 
-def build_device_sdp(sdp: SDPData, device) -> DeviceSDP:
+def build_device_sdp(sdp: SDPData, device, scaled_limbs: int = 0) -> DeviceSDP:
     """Bucket the host blocks by quantized shape, zero-pad each block to
-    its bucket's shape, and stage everything to `device` as float64 MP
-    tensors.  The host SDPData must hold float64 limbs."""
+    its bucket's shape, and stage everything to `device`.  The host SDPData
+    must hold float64 limbs.  scaled_limbs = 0 stages them as classic
+    float64 MP tensors; scaled_limbs = K32 > 0 converts them exactly into
+    the scaled representation with K32 float32 limbs (the host then needs
+    at least ceil(24 K32 / 53) + 1 limbs), as sdpb_tpu's
+    build_device_sdp(..., scaled_limbs=K32)."""
     device = torch.device(device)
     if np.asarray(sdp.b).dtype != np.float64:
         raise TypeError("the port stages float64 host limbs")
     K = sdp.b.shape[0]
     N = sdp.dual_dim
+    if scaled_limbs:
+        need = -(-(24 * scaled_limbs) // 53) + 1
+        if K < need:
+            raise ValueError(f"{K} float64 host limbs carry {53 * K} bits, fewer "
+                             f"than the {need} limbs scaled K={scaled_limbs} needs")
+    mask_dtype = mp.SCALED_DTYPE if scaled_limbs else torch.float64
 
     def stage(arr: np.ndarray) -> MP:
+        if scaled_limbs:
+            return mp.from_parts(*mp.f64_limbs_to_scaled_parts(arr, scaled_limbs),
+                                 device)
         return MP(torch.as_tensor(np.ascontiguousarray(arr), dtype=torch.float64,
                                   device=device))
 
     def stage_mask(arr: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(arr, dtype=torch.float64, device=device)
+        return torch.as_tensor(arr, dtype=mask_dtype, device=device)
 
     groups: Dict[tuple, List] = {}
     for blk in sdp.blocks:

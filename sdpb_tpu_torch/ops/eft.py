@@ -1,17 +1,20 @@
-"""Error-free transformations on float64 tensors (port of sdpb_tpu/ops/eft.py).
+"""Error-free transformations on float64 and float32 tensors (port of
+sdpb_tpu/ops/eft.py).
 
 Each returns a pair (result, error) whose sum is EXACTLY the true value,
-given correctly rounded IEEE float64 arithmetic with no FP contraction.
-Every torch op below is a separate kernel, so nothing is fused into an
-FMA; never route these through `torch.compile`, `addcmul` or `alpha=`.
+given correctly rounded IEEE arithmetic with no FP contraction.  Every
+torch op below is a separate kernel, so nothing is fused into an FMA;
+never route these through `torch.compile`, `addcmul` or `alpha=`.
 """
 from __future__ import annotations
 
-# Dekker-split power 2**27 for the 53-bit float64 mantissa, applied in the
-# contraction-immune form t = fl(2^s*a + a) (sdpb_tpu/ops/eft.py:55-66).
-SPLIT_POW = 134217728.0
+import torch
 
-MANT_BITS = 53
+# Dekker-split power 2**ceil(p/2) (2**27 for float64, 2**12 for float32),
+# applied in the contraction-immune form t = fl(2^s*a + a)
+# (sdpb_tpu/ops/eft.py:20-31).
+SPLIT_POW = 134217728.0
+SPLIT_POW_F32 = 4096.0
 
 
 def two_sum(a, b):
@@ -30,8 +33,8 @@ def quick_two_sum(a, b):
 
 
 def split(a):
-    """Dekker split of a float64 into two 26/27-bit halves (exact)."""
-    w = SPLIT_POW * a
+    """Dekker split into two halves of the mantissa (exact)."""
+    w = (SPLIT_POW_F32 if a.dtype == torch.float32 else SPLIT_POW) * a
     t = w + a
     hi = t - (t - a)
     lo = a - hi

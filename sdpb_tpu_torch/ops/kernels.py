@@ -2,26 +2,32 @@
 plain PyTorch version.
 
 Three kernels carry the numerics of the solve (sdpb_tpu/ops/linalg.py
-sends every matmul, Cholesky and triangular solve to them):
+sends every matmul, Cholesky and triangular solve to them), each built
+for both MP representations:
 
   * `mp_matmul`            csrc/mp_matmul.cu    <- pallas_kernels.py::_matmul_kernel
   * `mp_cholesky`          csrc/mp_cholesky.cu  <- pallas_kernels.py::_cholesky_kernel
   * `mp_solve_triangular`  csrc/mp_trsm.cu      <- pallas_kernels.py::_trsm_kernel
 
+The classic build (float64 limbs, csrc/mp.cuh) replaces the `scaled=False`
+branch of each Pallas kernel, the scaled build (float32 limbs and an int32
+exponent per element, csrc/mp_scaled.cuh) its `scaled=True` branch.
+
 Dispatch is by the device of the operands and nothing else: CUDA tensors
-launch the kernel (a shape, limb count or dtype the kernel cannot take
-raises), CPU tensors run the plain version.  There is no fallback.  Each
-wrapper counts its launches in `LAUNCHES`.
+launch the kernel of their representation (a shape, limb count or dtype
+the kernel cannot take raises), CPU tensors run the plain version.  There
+is no fallback.  Each wrapper counts its launches in `LAUNCHES`, one
+counter per (kernel, representation).
 
 The plain versions perform the kernels' exact operation order with the
 port's MP ops (`mpfloat.kmul`, the mplist term order), so on one device a
 kernel and its plain version agree limb for limb.
 
 Build: the CUDA sources are compiled with nvcc at first use, one shared
-library per limb count K (compiled with -DMP_K=K), into
-`build/sdpb_tpu_torch/` of the checkout, named by a hash of the sources
-and flags; they are bound with ctypes (plain C entry points returning
-`cudaGetLastError()`).
+library per limb count K and representation (-DMP_K=K, -DMP_SCALED=0|1),
+into `build/sdpb_tpu_torch/` of the checkout, named by a hash of the
+sources and flags; they are bound with ctypes (plain C entry points
+returning `cudaGetLastError()`, exponent pointers NULL for classic).
 """
 from __future__ import annotations
 
@@ -44,18 +50,29 @@ from .mpfloat import MP
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sdpb_tpu_torch"
 SOURCES = ("mp_matmul.cu", "mp_cholesky.cu", "mp_trsm.cu")
+# no contraction (a fused TwoProd or TwoSum loses its error term), and
+# IEEE subnormals, division and square root, as the plain versions have
+# them on the CPU
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-ftz=false", "-prec-div=true", "-prec-sqrt=true",
+              "-Xcompiler", "-fPIC")
 K_RANGE = range(2, 10)
+REPRESENTATIONS = (False, True)     # classic, scaled
 CHUNK = 8   # contraction chunk of the matmul (pallas_kernels.py:101)
 
-LAUNCHES = {"mp_matmul": 0, "mp_cholesky": 0, "mp_solve_triangular": 0}
+KERNEL_NAMES = ("mp_matmul", "mp_cholesky", "mp_solve_triangular")
+LAUNCHES = {name + suffix: 0 for suffix in ("", "_scaled") for name in KERNEL_NAMES}
 _LIBS = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def counter(name: str, scaled: bool) -> str:
+    """The LAUNCHES key of a kernel in one representation."""
+    return name + ("_scaled" if scaled else "")
 
 
 # ---------------------------------------------------------------------------
@@ -78,32 +95,35 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def library_path(K: int) -> Path:
-    return BUILD_DIR / f"libmpk_{_source_hash()}_k{K}.so"
+def library_path(K: int, scaled: bool = False) -> Path:
+    return BUILD_DIR / f"libmpk_{_source_hash()}_k{K}{'s' if scaled else 'c'}.so"
 
 
-def build(Ks=K_RANGE) -> list:
-    """Compile the libraries for the limb counts in Ks that are missing,
-    every (source, K) object in parallel; returns the limb counts built."""
-    todo = [K for K in Ks if not library_path(K).exists()]
+def build(Ks=K_RANGE, representations=REPRESENTATIONS) -> list:
+    """Compile the libraries for the (K, scaled) pairs that are missing,
+    every (source, K, representation) object in parallel; returns the
+    pairs built."""
+    todo = [(K, s) for s in representations for K in Ks
+            if not library_path(K, s).exists()]
     if not todo:
         return todo
     nvcc = _nvcc()
     t0 = time.time()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        def obj(K, src):
-            return str(Path(tmp) / f"{src}.k{K}.o")
+        def obj(K, s, src):
+            return str(Path(tmp) / f"{src}.k{K}{'s' if s else 'c'}.o")
 
-        compiles = [[nvcc, *NVCC_FLAGS, f"-DMP_K={K}", "-c", str(CSRC / src),
-                     "-o", obj(K, src)] for K in todo for src in SOURCES]
+        compiles = [[nvcc, *NVCC_FLAGS, f"-DMP_K={K}", f"-DMP_SCALED={int(s)}",
+                     "-c", str(CSRC / src), "-o", obj(K, s, src)]
+                    for K, s in todo for src in SOURCES]
         with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
             list(pool.map(_run, compiles))
-        for K in todo:
-            so = Path(tmp) / f"k{K}.so"
-            _run([nvcc, "-shared", "-o", str(so), *(obj(K, s) for s in SOURCES)])
-            os.replace(so, library_path(K))
-    print(f"built CUDA kernels for K={todo} in {time.time() - t0:.1f} s "
+        for K, s in todo:
+            so = Path(tmp) / f"k{K}{'s' if s else 'c'}.so"
+            _run([nvcc, "-shared", "-o", str(so), *(obj(K, s, src) for src in SOURCES)])
+            os.replace(so, library_path(K, s))
+    print(f"built CUDA kernels for (K, scaled) {todo} in {time.time() - t0:.1f} s "
           f"({BUILD_DIR})", flush=True)
     return todo
 
@@ -115,47 +135,79 @@ def _run(cmd) -> None:
                            f"{proc.stdout}{proc.stderr}")
 
 
-def _library(K: int) -> ctypes.CDLL:
+def _library(K: int, scaled: bool) -> ctypes.CDLL:
     if K not in K_RANGE:
         raise ValueError(f"the CUDA kernels take 2 <= K <= 9 limbs, got K={K}")
-    lib = _LIBS.get(K)
+    lib = _LIBS.get((K, scaled))
     if lib is None:
-        build([K])
-        lib = ctypes.CDLL(str(library_path(K)))
+        build([K], [scaled])
+        lib = ctypes.CDLL(str(library_path(K, scaled)))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.mp_matmul_launch.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
-        lib.mp_cholesky_launch.argtypes = [vp, vp, vp, ci, ci, vp]
-        lib.mp_trsm_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.mp_matmul_launch.argtypes = [vp] * 6 + [ci] * 4 + [vp]
+        lib.mp_cholesky_launch.argtypes = [vp] * 6 + [ci] * 2 + [vp]
+        lib.mp_trsm_launch.argtypes = [vp] * 10 + [ci] * 4 + [vp]
         for f in (lib.mp_matmul_launch, lib.mp_cholesky_launch,
                   lib.mp_trsm_launch):
             f.restype = ci
-        _LIBS[K] = lib
+        _LIBS[(K, scaled)] = lib
     return lib
 
 
 def _on_cpu(*xs: MP) -> bool:
     """True when every operand lies on the CPU; False when every operand
-    is a float64 CUDA tensor; raises on anything else."""
+    lies on one CUDA device in the kernels' types (float64 limbs, or
+    float32 limbs with int32 exponents); raises on anything else."""
     types = {x.device.type for x in xs}
     if types == {"cpu"}:
         return True
     if types != {"cuda"} or len({x.device for x in xs}) != 1:
         raise ValueError(f"operands must all lie on the CPU or on one CUDA "
                          f"device, got {[str(x.device) for x in xs]}")
+    scaled = xs[0].scaled
     for x in xs:
-        if x.dtype != torch.float64:
-            raise TypeError(f"the CUDA kernels take float64 limbs, got {x.dtype}")
+        if x.scaled != scaled:
+            raise TypeError("cannot mix scaled and classic MP operands")
+        want = mp.SCALED_DTYPE if scaled else torch.float64
+        if x.dtype != want:
+            raise TypeError(f"the {'scaled' if scaled else 'classic'} CUDA kernels "
+                            f"take {want} limbs, got {x.dtype}")
+        if scaled and (x.exp.dtype != torch.int32 or x.exp.device != x.device):
+            raise TypeError(f"scaled exponents must be int32 on {x.device}")
     return False
 
 
-def _launch(name: str, K: int, device, tensors, ints) -> None:
-    lib = _library(K)
+def _parts(x: MP):
+    """(limbs, exp) device pointers of a contiguous MP (exp NULL when
+    classic)."""
+    return x.limbs, x.exp
+
+
+def _launch(name: str, K: int, scaled: bool, device, tensors, ints) -> None:
+    lib = _library(K, scaled)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        args = [ctypes.c_void_p(t.data_ptr()) for t in tensors]
+        args = [ctypes.c_void_p(None if t is None else t.data_ptr())
+                for t in tensors]
         err = getattr(lib, name)(*args, *ints, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{name} failed to launch: CUDA error {err}")
+
+
+def _empty(shape, K: int, scaled: bool, device) -> MP:
+    """Uninitialized kernel output [K, *shape] in the representation."""
+    if not scaled:
+        return MP(torch.empty((K,) + tuple(shape), dtype=torch.float64,
+                              device=device))
+    return MP(torch.empty((K,) + tuple(shape), dtype=mp.SCALED_DTYPE, device=device),
+              torch.empty(tuple(shape), dtype=torch.int32, device=device))
+
+
+def _contiguous(x: MP) -> MP:
+    return MP(x.limbs.contiguous(), None if x.exp is None else x.exp.contiguous())
+
+
+def _clone(x: MP) -> MP:
+    return MP(x.limbs.clone(), None if x.exp is None else x.exp.clone())
 
 
 # ---------------------------------------------------------------------------
@@ -177,29 +229,37 @@ def _canon_batched_pair(a: MP, b: MP):
         fill = (1,) * (len(batch) - (x.ndim - 2))
         limbs = x.limbs.reshape((x.K,) + fill + tuple(x.limbs.shape[1:]))
         limbs = limbs.expand((x.K,) + batch + (r, c))
-        return MP(limbs.reshape((x.K, B, r, c)).contiguous())
+        exp = None
+        if x.scaled:
+            exp = x.exp.reshape(fill + tuple(x.exp.shape)).expand(batch + (r, c))
+            exp = exp.reshape((B, r, c))
+        return _contiguous(MP(limbs.reshape((x.K, B, r, c)), exp))
 
     def unflatten(r: MP) -> MP:
-        return MP(r.limbs.reshape((r.K,) + batch + (M, N)))
+        return MP(r.limbs.reshape((r.K,) + batch + (M, N)),
+                  None if r.exp is None else r.exp.reshape(batch + (M, N)))
 
     return canon(a, M, Kd), canon(b, Kd, N), unflatten
 
 
 def mp_matmul_plain(a: MP, b: MP) -> MP:
     """Plain version of the matmul kernel on [K,B,M,Kd] x [K,B,Kd,N]: the
-    contraction in zero-padded chunks of 8, each chunk's products summed as
-    a pairwise tree, chunk sums folded into the accumulator."""
+    contraction in zero-padded chunks of 8 (scaled zeros at EXP_ZERO), each
+    chunk's products summed as a pairwise tree, chunk sums folded into the
+    accumulator."""
     K, B, M, Kd = a.limbs.shape
     N = b.limbs.shape[-1]
     pad = (-Kd) % CHUNK
     if pad:
         a = mp.pad_dim(a, 2, pad)
         b = mp.pad_dim(b, 1, pad)
-    acc = mp.zeros((B, M, N), K, a.device)
+    acc = mp.zeros((B, M, N), K, a.device, scaled=a.scaled)
     for c in range((Kd + pad) // CHUNK):
         sl = slice(c * CHUNK, (c + 1) * CHUNK)
-        x = MP(a.limbs[:, :, :, sl].permute(0, 3, 1, 2)[..., None])      # [K,8,B,M,1]
-        y = MP(b.limbs[:, :, sl, :].permute(0, 2, 1, 3)[:, :, :, None])  # [K,8,B,1,N]
+        x = MP(a.limbs[:, :, :, sl].permute(0, 3, 1, 2)[..., None],       # [K,8,B,M,1]
+               None if a.exp is None else a.exp[:, :, sl].permute(2, 0, 1)[..., None])
+        y = MP(b.limbs[:, :, sl, :].permute(0, 2, 1, 3)[:, :, :, None],   # [K,8,B,1,N]
+               None if b.exp is None else b.exp[:, sl, :].permute(1, 0, 2)[:, :, None])
         terms = mp.kmul(x, y)
         while terms.shape[0] > 1:
             terms = mp.add(terms[0::2], terms[1::2])
@@ -216,12 +276,12 @@ def mp_matmul(a: MP, b: MP) -> MP:
         return unflatten(mp_matmul_plain(a4, b4))
     K, B, M, Kd = a4.limbs.shape
     N = b4.limbs.shape[-1]
-    out = torch.empty((K, B, M, N), dtype=torch.float64, device=a4.device)
-    if out.numel():
-        _launch("mp_matmul_launch", K, a4.device, (a4.limbs, b4.limbs, out),
-                (B, M, Kd, N))
-        LAUNCHES["mp_matmul"] += 1
-    return unflatten(MP(out))
+    out = _empty((B, M, N), K, a4.scaled, a4.device)
+    if out.limbs.numel():
+        _launch("mp_matmul_launch", K, a4.scaled, a4.device,
+                (*_parts(a4), *_parts(b4), *_parts(out)), (B, M, Kd, N))
+        LAUNCHES[counter("mp_matmul", a4.scaled)] += 1
+    return unflatten(out)
 
 
 # ---------------------------------------------------------------------------
@@ -232,10 +292,10 @@ def _as_batched(a: MP):
     """[..., n, m] -> contiguous [K, B, n, m] plus the inverse reshape."""
     batch = a.shape[:-2]
     B = int(np.prod(batch, dtype=np.int64)) if batch else 1
-    a4 = MP(a.limbs.reshape((a.K, B) + a.shape[-2:]).contiguous())
+    a4 = _contiguous(a.reshape((B,) + a.shape[-2:]))
 
     def unflatten(r: MP) -> MP:
-        return MP(r.limbs.reshape((r.K,) + batch + r.shape[-2:]))
+        return r.reshape(batch + r.shape[-2:])
 
     return a4, unflatten
 
@@ -244,19 +304,21 @@ def mp_cholesky_plain(a: MP) -> MP:
     """Plain version of the Cholesky kernel: right-looking, lower triangle
     only, one kernel-order rsqrt chain per pivot."""
     n = a.shape[-1]
-    W = a.limbs.clone()
-    L = torch.zeros_like(a.limbs)
+    W = _clone(a)
+    L = mp.zeros(a.shape, a.K, a.device, scaled=a.scaled)
+    E = Ellipsis
     for j in range(n):
-        d2 = MP(W[..., j, j])
+        d2 = W[E, j, j]
         r = mp.rsqrt(d2, kernel_order=True)
-        L[..., j, j] = mp.kmul(d2, r).limbs
+        mp.set_block(L, (E, j, j), mp.kmul(d2, r))
         if j + 1 == n:
             break
-        below = mp.kmul(MP(W[..., j + 1:, j]), mp.expand_dims(r, -1))
-        L[..., j + 1:, j] = below.limbs
+        below = mp.kmul(W[E, j + 1:, j], mp.expand_dims(r, -1))
+        mp.set_block(L, (E, slice(j + 1, None), j), below)
         upd = mp.kmul(mp.expand_dims(below, -1), mp.expand_dims(below, -2))
-        W[..., j + 1:, j + 1:] = mp.sub(MP(W[..., j + 1:, j + 1:]), upd).limbs
-    return MP(L)
+        trail = (E, slice(j + 1, None), slice(j + 1, None))
+        mp.set_block(W, trail, mp.sub(W[trail], upd))
+    return L
 
 
 def mp_cholesky(a: MP) -> MP:
@@ -267,12 +329,13 @@ def mp_cholesky(a: MP) -> MP:
     if _on_cpu(a4):
         return unflatten(mp_cholesky_plain(a4))
     K, B, n, _ = a4.limbs.shape
-    work = torch.empty_like(a4.limbs)
-    L = torch.empty_like(a4.limbs)
-    if L.numel():
-        _launch("mp_cholesky_launch", K, a4.device, (a4.limbs, work, L), (B, n))
-        LAUNCHES["mp_cholesky"] += 1
-    return unflatten(MP(L))
+    work = _empty((B, n, n), K, a4.scaled, a4.device)
+    L = _empty((B, n, n), K, a4.scaled, a4.device)
+    if L.limbs.numel():
+        _launch("mp_cholesky_launch", K, a4.scaled, a4.device,
+                (*_parts(a4), *_parts(work), *_parts(L)), (B, n))
+        LAUNCHES[counter("mp_cholesky", a4.scaled)] += 1
+    return unflatten(L)
 
 
 # ---------------------------------------------------------------------------
@@ -284,20 +347,20 @@ def mp_solve_triangular_plain(t: MP, b: MP, lower: bool) -> MP:
     once, then right-looking substitution (forward for lower t, backward
     for upper t)."""
     n = b.shape[-2]
+    E = Ellipsis
     dinv = mp.reciprocal(mp.diagonal(t), kernel_order=True)          # [..., n]
-    R = b.limbs.clone()
-    X = torch.empty_like(b.limbs)
+    R = _clone(b)
+    X = mp.zeros(b.shape, b.K, b.device, scaled=b.scaled)
     for step in range(n):
         i = step if lower else n - 1 - step
-        xi = mp.kmul(MP(R[..., i, :]), mp.expand_dims(dinv[..., i], -1))
-        X[..., i, :] = xi.limbs
-        rows = slice(i + 1, n) if lower else slice(0, i)
+        xi = mp.kmul(R[E, i, :], mp.expand_dims(dinv[E, i], -1))
+        mp.set_block(X, (E, i, slice(None)), xi)
         if (n - 1 - i if lower else i) == 0:
             continue
-        upd = mp.kmul(mp.expand_dims(MP(t.limbs[..., rows, i]), -1),
-                      mp.expand_dims(xi, -2))
-        R[..., rows, :] = mp.sub(MP(R[..., rows, :]), upd).limbs
-    return MP(X)
+        rows = slice(i + 1, n) if lower else slice(0, i)
+        upd = mp.kmul(mp.expand_dims(t[E, rows, i], -1), mp.expand_dims(xi, -2))
+        mp.set_block(R, (E, rows, slice(None)), mp.sub(R[E, rows, :], upd))
+    return X
 
 
 def mp_solve_triangular(t: MP, b: MP, lower: bool = True) -> MP:
@@ -313,11 +376,12 @@ def mp_solve_triangular(t: MP, b: MP, lower: bool = True) -> MP:
     if _on_cpu(t4, b4):
         return unflatten(mp_solve_triangular_plain(t4, b4, lower))
     K, B, n, m = b4.limbs.shape
-    X = torch.empty_like(b4.limbs)
-    if X.numel():
-        resid = torch.empty_like(b4.limbs)
-        dinv = torch.empty((K, B, n), dtype=torch.float64, device=b4.device)
-        _launch("mp_trsm_launch", K, b4.device,
-                (t4.limbs, b4.limbs, resid, dinv, X), (B, n, m, int(lower)))
-        LAUNCHES["mp_solve_triangular"] += 1
-    return unflatten(MP(X))
+    X = _empty((B, n, m), K, b4.scaled, b4.device)
+    if X.limbs.numel():
+        resid = _empty((B, n, m), K, b4.scaled, b4.device)
+        dinv = _empty((B, n), K, b4.scaled, b4.device)
+        _launch("mp_trsm_launch", K, b4.scaled, b4.device,
+                (*_parts(t4), *_parts(b4), *_parts(resid), *_parts(dinv), *_parts(X)),
+                (B, n, m, int(lower)))
+        LAUNCHES[counter("mp_solve_triangular", b4.scaled)] += 1
+    return unflatten(X)

@@ -78,9 +78,14 @@ class PosdefSolver:
     full-precision solves against the original matrix by iterative
     refinement (residuals at full K, corrections at the factor precision).
     The JAX package's optional Jacobi equilibration (off in the solver) is
-    not ported."""
+    not ported; a scaled operand has no use for it (its exponents carry the
+    range), and asking for it raises."""
 
-    def __init__(self, A: MP, factor_limbs: int = 2):
+    def __init__(self, A: MP, factor_limbs: int = 2, equilibrate: bool = False):
+        if equilibrate:
+            raise NotImplementedError(
+                "equilibration is unnecessary with exponent-tracked limbs"
+                if A.scaled else "Jacobi equilibration is not ported")
         self.A = A
         self.Kf = factor_limbs
         self.L = cholesky(mp.round_to(A, factor_limbs))
@@ -103,8 +108,14 @@ class PosdefSolver:
 def min_eigenvalue_estimate(A: MP) -> torch.Tensor:
     """lambda_min of symmetric blocks A [..., n, n] in float64: rescaled by
     the max magnitude, symmetrized (as jnp.linalg.eigvalsh does by
-    default), then eigvalsh."""
-    a = mp.to_float_array(A)
+    default), then eigvalsh.
+
+    A scaled A is read as its nearest float64 (mpfloat.nearest_double)
+    where the JAX package reads float32, its base type on the TPU: the card
+    has native float64, and so a scaled run sees the same float64 matrices
+    as a classic one and takes the same steps, where float32 would move
+    them at 1e-7 (the step lengths need only a few digits either way)."""
+    a = mp.nearest_double(A) if A.scaled else mp.to_float_array(A)
     scale = torch.amax(torch.abs(a), dim=(-2, -1), keepdim=True)
     safe = torch.where(scale == 0, torch.ones_like(scale), scale)
     s = a / safe

@@ -19,11 +19,11 @@ import mpmath
 import numpy as np
 import torch
 
-from sdpb_tpu.solver.params import SolverParameters
-from sdpb_tpu.utils.strings import limbs_to_mpf, str_to_limbs
-from sdpb_tpu.utils.timers import Timers
-
 from ..models.sdp import DeviceSDP
+from ..utils.strings import (limbs_to_mpf, scaled_limbs_to_mpf, str_to_limbs,
+                             str_to_scaled_limbs)
+from ..utils.timers import Timers
+from .params import SolverParameters
 from .state import SolverState, initial_state
 from .step import IterationStats, StepConfig, make_iteration
 
@@ -45,8 +45,9 @@ class TerminateReason(enum.Enum):
 
 
 class HostStats(NamedTuple):
-    """IterationStats on the host: MP fields as float64 limb arrays [K],
-    the rest as Python numbers."""
+    """IterationStats on the host: MP fields as float64 limb arrays [K]
+    (classic) or (float32 limbs [K], exponent) pairs (scaled), the rest as
+    Python numbers."""
     primal_objective: np.ndarray
     dual_objective: np.ndarray
     duality_gap: np.ndarray
@@ -66,20 +67,26 @@ _MP_FIELDS = ("primal_objective", "dual_objective", "duality_gap", "mu")
 
 
 def to_host(stats: IterationStats) -> HostStats:
-    """One device-to-host copy of every field."""
+    """One device-to-host copy of every field (float32 limbs and int32
+    exponents are exact in float64)."""
+    K, scaled = stats.mu.K, stats.mu.scaled
     parts = []
     for name in IterationStats._fields:
         v = getattr(stats, name)
-        parts.append(v.limbs if name in _MP_FIELDS
-                     else v.to(torch.float64).reshape(1))
+        if name in _MP_FIELDS:
+            parts.append(v.limbs.to(torch.float64))
+            if scaled:
+                parts.append(v.exp.to(torch.float64).reshape(1))
+        else:
+            parts.append(v.to(torch.float64).reshape(1))
     flat = torch.cat(parts).cpu().numpy()
     out, pos = {}, 0
     for name in IterationStats._fields:
-        n = stats.mu.K if name in _MP_FIELDS else 1
+        n = K + scaled if name in _MP_FIELDS else 1
         v = flat[pos:pos + n]
         pos += n
         if name in _MP_FIELDS:
-            out[name] = v.copy()
+            out[name] = (v[:K].astype(np.float32), int(v[K])) if scaled else v.copy()
         elif name in ("is_pd_feasible", "max_complementarity_exceeded"):
             out[name] = bool(v[0])
         else:
@@ -110,12 +117,24 @@ class SolveResult:
         return max(self.primal_error_P, self.primal_error_p)
 
 
-def initial_factor_limbs(params: SolverParameters, K: int) -> tuple:
-    """(factor_limbs, factor_cap) of the mixed-precision solves, float64
-    limbs (p_bits = 53): the empirical sizing law of the JAX package,
-    bits >= max(4 log2 Omega, 2 (log2 Omega + log2 1/gap)) + 30, clamped to
-    [max(2, (K+2)//2), K]; params.factor_limbs > 0 pins it."""
-    p_bits = 53
+def host_mpf(v) -> mpmath.mpf:
+    """Exact mpmath value of a HostStats MP field."""
+    return scaled_limbs_to_mpf(*v) if isinstance(v, tuple) else limbs_to_mpf(v)
+
+
+def _finite(v) -> bool:
+    return bool(np.all(np.isfinite(v[0] if isinstance(v, tuple) else v)))
+
+
+def initial_factor_limbs(params: SolverParameters, K: int,
+                         scaled: bool = False) -> tuple:
+    """(factor_limbs, factor_cap) of the mixed-precision solves: the
+    empirical sizing law of the JAX package, bits >= max(4 log2 Omega,
+    2 (log2 Omega + log2 1/gap)) + 30 in limbs of p_bits (53 classic, 24
+    scaled), clamped to [max(2, (K+2)//2), K]; params.factor_limbs > 0 pins
+    it.  Scaled float32 arithmetic saturates instead of producing NaN, so
+    there the exploding corrector beta is what triggers the heal."""
+    p_bits = 24 if scaled else 53
     factor_cap = K
     if params.factor_limbs > 0:
         return min(factor_cap, max(2, params.factor_limbs)), factor_cap
@@ -132,13 +151,13 @@ def initial_factor_limbs(params: SolverParameters, K: int) -> tuple:
 
 def print_iteration_line(it: int, elapsed: float, st: HostStats) -> None:
     """One line of the iteration table (run/print_iteration.cxx:16-56)."""
-    mu = limbs_to_mpf(st.mu)
+    mu = host_mpf(st.mu)
     print(
         f"{it:<4d} {int(elapsed):>8d} "
         f"{mpmath.nstr(mu, 2, min_fixed=1, max_fixed=0):<8s} "
-        f"{float(limbs_to_mpf(st.primal_objective)):+.3e} "
-        f"{float(limbs_to_mpf(st.dual_objective)):+.3e} "
-        f"{float(limbs_to_mpf(st.duality_gap)):.3e} "
+        f"{float(host_mpf(st.primal_objective)):+.3e} "
+        f"{float(host_mpf(st.dual_objective)):+.3e} "
+        f"{float(host_mpf(st.duality_gap)):.3e} "
         f"{st.primal_error_P:+.3e} {st.primal_error_p:+.3e} "
         f"{st.dual_error:+.3e} "
         f"{min(st.primal_step, 1.0):.3g}    {min(st.dual_step, 1.0):.3g}    "
@@ -149,15 +168,17 @@ def run_solver(sdp: DeviceSDP, params: SolverParameters, verbosity: int = 1,
                initial: Optional[SolverState] = None,
                timers: Optional[Timers] = None) -> SolveResult:
     K = sdp.b.K
+    scaled = sdp.b.scaled
     timers = timers if timers is not None else Timers()
 
-    def parse(s: str) -> np.ndarray:
-        return str_to_limbs(s, K, np.float64)
+    def parse(s: str):
+        """Decimal string -> host MP parts in the problem's representation."""
+        return str_to_scaled_limbs(s, K) if scaled else str_to_limbs(s, K)
 
     state = initial if initial is not None else initial_state(
         sdp, parse(params.initial_matrix_scale_primal),
         parse(params.initial_matrix_scale_dual))
-    factor_limbs, factor_cap = initial_factor_limbs(params, K)
+    factor_limbs, factor_cap = initial_factor_limbs(params, K, scaled)
 
     def make_cfg(kf: int) -> StepConfig:
         return StepConfig(
@@ -211,11 +232,12 @@ def run_solver(sdp: DeviceSDP, params: SolverParameters, verbosity: int = 1,
         if verbosity >= 2:
             print(f"  -- iteration {it}: {t_it:.3f} s device+sync")
 
-        finite = all(np.all(np.isfinite(getattr(st, name))) for name in (
+        finite = all(_finite(getattr(st, name)) for name in (
             "primal_objective", "dual_objective", "duality_gap", "mu",
             "primal_error_P", "primal_error_p", "dual_error", "primal_step",
             "dual_step"))
-        # an exploding corrector beta is the same conditioning failure
+        # an exploding corrector beta is the same conditioning failure (the
+        # only sign of it in scaled arithmetic, which saturates)
         if finite and st.beta_corrector > 1e4:
             finite = False
         # tripped KKT residual guard: heal below the factor cap, warn at it
@@ -247,9 +269,9 @@ def run_solver(sdp: DeviceSDP, params: SolverParameters, verbosity: int = 1,
             iteration = make_iteration(cfg)
             continue
 
-        p_obj = limbs_to_mpf(st.primal_objective)
-        d_obj = limbs_to_mpf(st.dual_objective)
-        gap = limbs_to_mpf(st.duality_gap)
+        p_obj = host_mpf(st.primal_objective)
+        d_obj = host_mpf(st.dual_objective)
+        gap = host_mpf(st.duality_gap)
         perr_P, perr_p, derr = st.primal_error_P, st.primal_error_p, st.dual_error
         primal_error = max(perr_P, perr_p)
 

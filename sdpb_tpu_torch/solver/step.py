@@ -7,6 +7,10 @@ computed before stepping), so on termination the caller keeps the input
 state as the solution.  The JAX package runs the predictor and corrector
 as a 2-step lax.scan; here they are a loop of two passes with the same
 form: in the predictor pass the -dX dY correction is multiplied by 0.0.
+Classic and scaled states run the same code.  The scaled one keeps its
+error norms and corrector beta in float32, as the JAX package does on the
+TPU, but its step lengths in float64 (linalg.min_eigenvalue_estimate), so
+that it takes the classic run's steps.
 """
 from __future__ import annotations
 
@@ -42,12 +46,16 @@ def _psd_outer_masks(bucket: Bucket):
     return out
 
 
-def _scalar_mp(x: float, K: int, device) -> MP:
-    return mp.from_double(np.float64(x), K, device)
+def _scalar_mp(x: float, K: int, device, scaled: bool) -> MP:
+    return mp.from_double(np.float64(x), K, device, scaled=scaled)
 
 
-def _host_mp(limbs: np.ndarray, device) -> MP:
-    return MP(torch.as_tensor(np.asarray(limbs, dtype=np.float64), device=device))
+def _host_mp(parts, device) -> MP:
+    """Device MP from host parts: float64 limbs [K] (classic) or a
+    (float32 limbs [K], int32 exp) pair (scaled)."""
+    if isinstance(parts, tuple):
+        return mp.from_parts(*parts, device)
+    return MP(torch.as_tensor(np.asarray(parts, dtype=np.float64), device=device))
 
 
 def _bases(bucket: Bucket):
@@ -73,18 +81,18 @@ class IterationStats(NamedTuple):
     primal_objective: MP           # scalar MP
     dual_objective: MP
     duality_gap: MP
-    primal_error_P: torch.Tensor   # float64 scalar
+    primal_error_P: torch.Tensor   # scalar in the limb dtype
     primal_error_p: torch.Tensor
     dual_error: torch.Tensor
     mu: MP                         # scalar MP
     primal_step: torch.Tensor      # float64 scalar
     dual_step: torch.Tensor
-    beta_corrector: torch.Tensor   # float64 scalar
+    beta_corrector: torch.Tensor   # scalar in the limb dtype
     is_pd_feasible: torch.Tensor   # bool
     max_complementarity_exceeded: torch.Tensor  # bool
     # relative Schur solve residual max ||S u - rhs|| / ||rhs|| (full
     # precision, worst of predictor and corrector)
-    kkt_residual: torch.Tensor     # float64 scalar
+    kkt_residual: torch.Tensor     # scalar in the limb dtype
 
 
 def _compute_pairings(bucket: Bucket, X_solvers, Ys: List[MP], n_refine: int):
@@ -134,10 +142,10 @@ def _schur_complement(bucket: Bucket, TXs, TYs) -> MP:
         S = S.reshape((B, P, P))
     S = linalg.symmetrize(S)
     rm = bucket.row_mask
-    eye = torch.eye(P, dtype=torch.float64, device=rm.device)
+    eye = torch.eye(P, dtype=rm.dtype, device=rm.device)
     S = mp.mask_value(S, rm[:, :, None] * rm[:, None, :])
     pad_diag = (eye[None] * (1.0 - rm)[:, :, None]) > 0
-    one = _scalar_mp(1.0, S.K, S.device)
+    one = _scalar_mp(1.0, S.K, S.device, S.scaled)
     return mp.where(pad_diag, mp.broadcast_to(one, S.shape), S)
 
 
@@ -152,16 +160,17 @@ def _constraint_matrix_weighted_sum(bucket: Bucket, a: MP) -> List[MP]:
         h = basis.shape[-2]
         W = mp.mul(mp.expand_dims(basis, 1), mp.expand_dims(a4, 2))
         Ssub = linalg.matmul(W, mp.expand_dims(basis.mT, 1))   # [B,npairs,h,h]
-        out = torch.zeros((a.K, B, sh.dim * h, sh.dim * h), dtype=torch.float64,
-                          device=a.device)
+        out = mp.zeros((B, sh.dim * h, sh.dim * h), a.K, a.device, scaled=a.scaled)
         for p, (s, r) in enumerate(_pairs(sh.dim)):
             blk = Ssub[:, p]
             if s != r:
                 blk = mp.mul_pow2(blk, 0.5)
-            out[:, :, r * h:(r + 1) * h, s * h:(s + 1) * h] = blk.limbs
+            mp.set_block(out, (slice(None), slice(r * h, (r + 1) * h),
+                             slice(s * h, (s + 1) * h)), blk)
             if s != r:
-                out[:, :, s * h:(s + 1) * h, r * h:(r + 1) * h] = blk.mT.limbs
-        results.append(MP(out))
+                mp.set_block(out, (slice(None), slice(s * h, (s + 1) * h),
+                                 slice(r * h, (r + 1) * h)), blk.mT)
+        results.append(out)
     return results
 
 
@@ -205,8 +214,8 @@ def _step_from_lambda(lam: torch.Tensor, gamma: float) -> torch.Tensor:
 class StepConfig:
     total_psd_rows: int
     gamma: float                        # stepLengthReduction
-    feasible_beta_limbs: np.ndarray     # host limbs [K]
-    infeasible_beta_limbs: np.ndarray
+    feasible_beta_limbs: object         # host parts, see _host_mp
+    infeasible_beta_limbs: object
     primal_error_threshold: float
     dual_error_threshold: float
     max_complementarity: float
@@ -227,9 +236,11 @@ def make_iteration(cfg: StepConfig):
     def iteration(sdp: DeviceSDP, state: SolverState):
         K = sdp.b.K
         dev = sdp.device
+        scaled = sdp.b.scaled
+        fdt = sdp.b.dtype                  # float64 classic, float32 scaled
         beta_feas = _host_mp(cfg.feasible_beta_limbs, dev)
         beta_infeas = _host_mp(cfg.infeasible_beta_limbs, dev)
-        one = _scalar_mp(1.0, K, dev)
+        one = _scalar_mp(1.0, K, dev, scaled)
         Kf, n_refine = cfg.factor_limbs, cfg.n_refine
         zs = list(zip(sdp.buckets, state.buckets))
 
@@ -259,7 +270,7 @@ def make_iteration(cfg: StepConfig):
 
         # ---- dual residues c - Tr(A_* Y) - B y
         dual_residues = []
-        dual_error = torch.zeros((), dtype=torch.float64, device=dev)
+        dual_error = torch.zeros((), dtype=fdt, device=dev)
         for (bk, bs), TYs in zip(zs, TYs_all):
             sh = bk.shape
             diag_sum = None
@@ -275,7 +286,7 @@ def make_iteration(cfg: StepConfig):
 
         # ---- primal residues P = sum_p A_p x_p - X
         primal_residues = []
-        primal_error_P = torch.zeros((), dtype=torch.float64, device=dev)
+        primal_error_P = torch.zeros((), dtype=fdt, device=dev)
         for bk, bs in zs:
             Ax = _constraint_matrix_weighted_sum(bk, bs.x)
             Xs = _psd_pair(bs, "X_even", "X_odd", bk.shape)
@@ -286,7 +297,7 @@ def make_iteration(cfg: StepConfig):
                 primal_error_P = torch.maximum(primal_error_P, mp.max_abs(P))
 
         # ---- primal residue p = b - B^T x
-        Btx = mp.zeros((sdp.dual_dim,), K, dev)
+        Btx = mp.zeros((sdp.dual_dim,), K, dev, scaled=scaled)
         for bk, bs in zs:
             xm = _row_mask_mp(bs.x, bk.row_mask)
             t = linalg.matmul(bk.Bmat.mT, linalg.col(xm))[..., 0]     # [B,N]
@@ -301,7 +312,7 @@ def make_iteration(cfg: StepConfig):
 
         # ---- Schur complement solvers and Q = sum B^T S^{-1} B
         S_solvers, SinvBs = [], []
-        Q = mp.zeros((sdp.dual_dim, sdp.dual_dim), K, dev)
+        Q = mp.zeros((sdp.dual_dim, sdp.dual_dim), K, dev, scaled=scaled)
         for bk, TXs, TYs in zip(sdp.buckets, TXs_all, TYs_all):
             ssol = linalg.PosdefSolver(_schur_complement(bk, TXs, TYs), Kf)
             V = ssol.solve(bk.Bmat, n_refine)
@@ -318,21 +329,23 @@ def make_iteration(cfg: StepConfig):
                                 _psd_outer_masks(bk)):
                 t = mp.sum_(linalg.frobenius(mp.mask_value(X, om), Y), axis=0)
                 trXY = t if trXY is None else mp.add(trXY, t)
-        total_mp = _scalar_mp(float(cfg.total_psd_rows), K, dev)
+        total_mp = _scalar_mp(float(cfg.total_psd_rows), K, dev, scaled)
         mu = mp.div(trXY, total_mp)
-        max_comp = min(cfg.max_complementarity, float(np.finfo(np.float64).max))
+        # clamp to the limb dtype's range (1e100 overflows float32)
+        max_comp = min(cfg.max_complementarity, float(torch.finfo(fdt).max))
         max_comp_exceeded = mp.to_float_array(mu) > max_comp
 
         # ---- predictor (pass 0) and corrector (pass 1)
-        beta_pred = mp.where(is_pd_feasible, mp.zeros((), K, dev), beta_infeas)
+        beta_pred = mp.where(is_pd_feasible, mp.zeros((), K, dev, scaled=scaled),
+                             beta_infeas)
 
         def zeros_like_psd(bs, bk):
-            return [mp.zeros(X.shape, K, dev)
+            return [mp.zeros(X.shape, K, dev, scaled=scaled)
                     for X in _psd_pair(bs, "X_even", "X_odd", bk.shape)]
 
         dXs = [zeros_like_psd(bs, bk) for bk, bs in zs]
         dYs = [zeros_like_psd(bs, bk) for bk, bs in zs]
-        kkt_residual = torch.zeros((), dtype=torch.float64, device=dev)
+        kkt_residual = torch.zeros((), dtype=fdt, device=dev)
         for step_idx in (0, 1):
             if step_idx == 0:
                 beta = beta_pred
@@ -376,7 +389,7 @@ def make_iteration(cfg: StepConfig):
 
             # u = S^{-1} rhs; dy = Q^{-1}(p - B^T u); dx = u + (S^{-1} B) dy
             us = []
-            dy_local = mp.zeros((sdp.dual_dim,), K, dev)
+            dy_local = mp.zeros((sdp.dual_dim,), K, dev, scaled=scaled)
             for i, bk in enumerate(sdp.buckets):
                 u = S_solvers[i].solve(linalg.col(dxs[i]), n_refine)
                 us.append(u)
@@ -384,7 +397,7 @@ def make_iteration(cfg: StepConfig):
                     r = mp.sub(linalg.col(dxs[i]), linalg.matmul(S_solvers[i].A, u))
                     rn = mp.max_abs(_row_mask_mp(r[..., 0], bk.row_mask))
                     bn = mp.max_abs(_row_mask_mp(dxs[i], bk.row_mask))
-                    tiny = float(np.finfo(np.float64).tiny)
+                    tiny = float(torch.finfo(fdt).tiny)
                     kkt_residual = torch.maximum(
                         kkt_residual, rn / torch.clamp(bn, min=tiny))
                 t = linalg.matmul(bk.Bmat.mT, u)[..., 0]
@@ -425,8 +438,8 @@ def make_iteration(cfg: StepConfig):
         dual_step = torch.where(is_pd_feasible, both, dual_step)
 
         # ---- update
-        ap = mp.from_double(primal_step, K)
-        ad = mp.from_double(dual_step, K)
+        ap = mp.from_double(primal_step, K, scaled=scaled)
+        ad = mp.from_double(dual_step, K, scaled=scaled)
         new_buckets = []
         for i, (bk, bs) in enumerate(zs):
             sh = bk.shape

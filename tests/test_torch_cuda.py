@@ -4,8 +4,10 @@ JAX, so it runs on a machine with the card and no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Tolerances, all bit-identical limbs (IEEE ==):
-  * each kernel against its plain PyTorch version on the card;
+Tolerances, all bit-identical limbs (IEEE ==) and, for the scaled
+representation, identical exponents:
+  * each kernel, classic and scaled, against its plain PyTorch version on
+    the card;
   * each kernel on the card against its plain version on the CPU (which
     tests/test_torch_kernels.py holds bit for bit to the Pallas kernels);
   * the elementwise MP ops on the card against the same ops on the CPU,
@@ -20,7 +22,7 @@ import torch
 
 from sdpb_tpu_torch.ops import kernels as tk, mpfloat as tmp
 
-from torch_parity import T, rand_limbs
+from torch_parity import T, rand_limbs, rand_scaled, same_scaled
 
 pytestmark = pytest.mark.cuda
 
@@ -44,7 +46,20 @@ def _spd(rng, B, n, K):
 
 
 def _same(x: tmp.MP, y: tmp.MP) -> bool:
-    return torch.equal(x.limbs.cpu(), y.limbs.cpu())
+    return torch.equal(x.limbs.cpu(), y.limbs.cpu()) and (
+        x.exp is None or torch.equal(x.exp.cpu(), y.exp.cpu()))
+
+
+def _spd_scaled(rng, B, n, K, decades=2.5):
+    """SPD blocks graded over 2 * decades decades, as scaled parts."""
+    G = rng.standard_normal((B, n, n))
+    top = G @ np.swapaxes(G, -1, -2) + n * np.eye(n)
+    d = 10.0 ** rng.uniform(-decades, decades, (B, n))
+    top = top * d[:, :, None] * d[:, None, :]
+    A = rand_limbs(rng, (B, n, n), -(-(24 * K) // 53) + 1)
+    A[1:] *= np.abs(top / A[0])
+    A[0] = top
+    return tmp.f64_limbs_to_scaled_parts((A + np.swapaxes(A, -1, -2)) / 2, K)
 
 
 @pytest.mark.parametrize("K", list(range(2, 10)))
@@ -72,6 +87,82 @@ def test_kernels_match_plain_versions(cuda, K):
         assert _same(X, tk.mp_solve_triangular_plain(T(t, cuda), T(B, cuda), lower))
         assert _same(X, tk.mp_solve_triangular(T(t), T(B), lower))
     assert tk.LAUNCHES["mp_solve_triangular"] == 2
+
+
+@pytest.mark.parametrize("K", list(range(2, 10)))
+def test_scaled_kernels_match_plain_versions(cuda, K):
+    rng = np.random.default_rng(100 + K)
+    a, b = rand_scaled(rng, (2, 3, 5, 11), K), rand_scaled(rng, (1, 11, 1), K)
+    tk.reset_launches()
+    out = tk.mp_matmul(T(a, cuda), T(b, cuda))
+    assert tk.LAUNCHES["mp_matmul_scaled"] == 1 and tk.LAUNCHES["mp_matmul"] == 0
+    a4, b4, unflatten = tk._canon_batched_pair(T(a, cuda), T(b, cuda))
+    assert _same(out, unflatten(tk.mp_matmul_plain(a4, b4)))
+    assert _same(out, tk.mp_matmul(T(a), T(b)))
+
+    A = _spd_scaled(rng, 3, 9, K)
+    L = tk.mp_cholesky(T(A, cuda))
+    assert tk.LAUNCHES["mp_cholesky_scaled"] == 1
+    assert _same(L, tk.mp_cholesky_plain(T(A, cuda)))
+    assert _same(L, tk.mp_cholesky(T(A)))
+
+    B = rand_scaled(rng, (3, 9, 4), K)
+    Lh = (L.limbs.cpu().numpy(), L.exp.cpu().numpy())
+    Lt = tuple(np.ascontiguousarray(np.swapaxes(x, -1, -2)) for x in Lh)
+    for lower, t in ((True, Lh), (False, Lt)):
+        X = tk.mp_solve_triangular(T(t, cuda), T(B, cuda), lower)
+        assert _same(X, tk.mp_solve_triangular_plain(T(t, cuda), T(B, cuda), lower))
+        assert _same(X, tk.mp_solve_triangular(T(t), T(B), lower))
+    assert tk.LAUNCHES["mp_solve_triangular_scaled"] == 2
+    assert tk.LAUNCHES["mp_solve_triangular"] == 0
+
+
+def test_scaled_dispatch_launches_or_raises(cuda):
+    """A scaled CUDA operand launches the scaled kernel (its counter, and
+    only its, moves) or raises; it never runs the plain version."""
+    rng = np.random.default_rng(9)
+    a = T(rand_scaled(rng, (2, 3, 3), 3), cuda)
+    tk.reset_launches()
+    tk.mp_matmul(a, a)
+    tk.mp_cholesky(T(_spd_scaled(rng, 2, 3, 3), cuda))
+    tk.mp_solve_triangular(a, a)
+    assert tk.LAUNCHES == {"mp_matmul": 0, "mp_cholesky": 0, "mp_solve_triangular": 0,
+                           "mp_matmul_scaled": 1, "mp_cholesky_scaled": 1,
+                           "mp_solve_triangular_scaled": 1}
+    wrong_limbs = tmp.MP(a.limbs.double(), a.exp)
+    wrong_exp = tmp.MP(a.limbs, a.exp.long())
+    classic = tmp.MP(a.limbs.double())
+    for x, y in ((wrong_limbs, wrong_limbs), (wrong_exp, wrong_exp), (a, classic)):
+        with pytest.raises(TypeError):
+            tk.mp_matmul(x, y)
+    with pytest.raises(ValueError):
+        tk.mp_cholesky(tmp.MP(torch.zeros((10, 1, 3, 3), device=cuda),
+                              torch.zeros((1, 3, 3), dtype=torch.int32, device=cuda)))
+    assert tk.LAUNCHES["mp_matmul_scaled"] == 1
+
+
+@pytest.mark.parametrize("K", [2, 3, 5, 9])
+def test_scaled_elementwise_ops_agree_across_devices(cuda, K):
+    rng = np.random.default_rng(60 + K)
+    a = rand_scaled(rng, (400,), K)
+    c = rand_scaled(rng, (400,), K, positive=True)
+    ops = {
+        "add": lambda x, y: tmp.add(x, y),
+        "mul": lambda x, y: tmp.mul(x, y),
+        "kmul": lambda x, y: tmp.kmul(x, y),
+        "div": lambda x, y: tmp.div(x, y),
+        "reciprocal": lambda x, y: tmp.reciprocal(y, kernel_order=True),
+        "rsqrt": lambda x, y: tmp.rsqrt(y),
+        "sqrt": lambda x, y: tmp.sqrt(y),
+        "sum": lambda x, y: tmp.sum_(x, axis=0),
+        "round_to": lambda x, y: tmp.round_to(x, 2),
+        "to_float": lambda x, y: tmp.MP(tmp.to_float_array(x)[None]),
+    }
+    for name, f in ops.items():
+        assert _same(f(T(a, cuda), T(c, cuda)), f(T(a), T(c))), name
+    m = torch.as_tensor(c[0][0] + c[0][1])
+    seed = tmp.inv_sqrt(m.to(cuda)).cpu().numpy()
+    assert np.array_equal(seed, (np.float32(1) / np.sqrt(m.numpy())))
 
 
 @pytest.mark.parametrize("K", [2, 3, 5, 8])
@@ -108,25 +199,36 @@ def test_cuda_dispatch_raises_on_what_the_kernels_cannot_take(cuda):
         tk.mp_matmul(tmp.MP(ten.limbs[:2]), tmp.MP(ten.limbs[:2].cpu()))
 
 
-def test_solver_on_card_follows_cpu_run(cuda):
-    from sdpb_tpu.models.synthetic import random_sdp
-    from sdpb_tpu.solver.params import SolverParameters
-    from sdpb_tpu_torch.models.sdp import build_device_sdp
-    from sdpb_tpu_torch.solver.solve import run_solver
+@pytest.mark.parametrize("scaled_limbs", [0, 7])
+def test_solver_on_card_follows_cpu_run(cuda, scaled_limbs):
+    """Four iterations of the certificate SDP on the card and on the CPU
+    (float64 eigenvalues from cuSOLVER and from LAPACK set the steps):
+    every statistic to 1e-8 relative (classic) or 1e-5 (scaled, whose
+    error norms and corrector beta are float32)."""
+    from pathlib import Path
 
-    host = random_sdp(num_blocks=3, dim=2, num_points=4, dual_dim=3, K=3, seed=2)
+    from sdpb_tpu_torch.io.sdp_zip import read_sdp
+    from sdpb_tpu_torch.models.sdp import build_device_sdp
+    from sdpb_tpu_torch.solver.params import SolverParameters
+    from sdpb_tpu_torch.solver.solve import host_mpf, run_solver
+
+    zip_ = Path(__file__).resolve().parents[1] / "fixtures" / "dim2_certificate" / "sdp.zip"
+    host = read_sdp(zip_, 5 if scaled_limbs else 3)
     params = SolverParameters(precision=150, initial_matrix_scale_primal="1e2",
                               initial_matrix_scale_dual="1e2", max_iterations=4)
     tk.reset_launches()
-    on_card = run_solver(build_device_sdp(host, cuda), params, verbosity=0)
-    assert all(v > 0 for v in tk.LAUNCHES.values()), tk.LAUNCHES
-    on_cpu = run_solver(build_device_sdp(host, "cpu"), params, verbosity=0)
+    on_card = run_solver(build_device_sdp(host, cuda, scaled_limbs), params,
+                         verbosity=0)
+    names = [tk.counter(n, bool(scaled_limbs)) for n in tk.KERNEL_NAMES]
+    assert all(tk.LAUNCHES[n] > 0 for n in names), tk.LAUNCHES
+    on_cpu = run_solver(build_device_sdp(host, "cpu", scaled_limbs), params,
+                        verbosity=0)
+    rel = 1e-5 if scaled_limbs else 1e-8
     assert str(on_card.terminate_reason) == str(on_cpu.terminate_reason)
     assert len(on_card.history) == len(on_cpu.history)
     for mine, ref in zip(on_card.history, on_cpu.history):
         for f in mine._fields:
-            got = np.asarray(getattr(mine, f), dtype=np.float64)
-            want = np.asarray(getattr(ref, f), dtype=np.float64)
-            scale = max(float(np.max(np.abs(want))), 1e-300)
-            assert float(np.max(np.abs(got - want))) <= 1e-8 * scale or \
-                float(np.max(np.abs(got - want))) <= 2.0 ** -(53 * 3 - 40), f
+            got, want = getattr(mine, f), getattr(ref, f)
+            if f in ("primal_objective", "dual_objective", "duality_gap", "mu"):
+                got, want = float(host_mpf(got)), float(host_mpf(want))
+            assert abs(got - want) <= rel * max(abs(want), 1e-30), f

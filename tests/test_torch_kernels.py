@@ -10,6 +10,12 @@ Tolerances:
     port seeds rsqrt with the correctly rounded 1/sqrt, Pallas with
     jax.lax.rsqrt) — L L^T - A within 2^-(53K-10) relative and L within
     2^-(53K-10) of the Pallas factor.
+  * the scaled branches (float32 limbs and int32 exponents, `scaled=True`
+    in Pallas; inputs spread over 8-12 decades, broadcast batch, a
+    contraction tail padded with EXP_ZERO): mp_matmul and
+    mp_solve_triangular bit-identical in limbs and exponents; mp_cholesky
+    bit-identical with the jax.lax.rsqrt seed substituted, and with the
+    port's own seed L within 2^-(24K-10) relative of the Pallas factor.
 The CUDA kernels themselves are held to their plain versions, bit for
 bit, by tests/test_torch_cuda.py and by chip_smoke.py on the card.
 """
@@ -17,10 +23,14 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
 from sdpb_tpu.ops import pallas_kernels as pk
 from sdpb_tpu_torch.ops import kernels as tk, mpfloat as tmp
 
-from torch_parity import J, T, limbs_of, rand_limbs, rel_err
+from torch_parity import (J, T, limbs_of, rand_limbs, rand_scaled, rel_err,
+                          same_scaled, scaled_rel_err)
 
 torch.set_num_threads(1)
 
@@ -83,6 +93,54 @@ def test_trsm_plain_matches_pallas(K):
         assert np.array_equal(limbs_of(X), limbs_of(Xp)), lower
 
 
+def _spd_scaled(rng, B, n, K, decades):
+    """SPD blocks graded over 2 * decades decades, as scaled parts."""
+    G = rng.standard_normal((B, n, n))
+    A = G @ np.swapaxes(G, -1, -2) + n * np.eye(n)
+    d = 10.0 ** rng.uniform(-decades, decades, (B, n))
+    A = _lift(A * d[:, :, None] * d[:, None, :], rng, -(-(24 * K) // 53) + 1)
+    return tmp.f64_limbs_to_scaled_parts((A + np.swapaxes(A, -1, -2)) / 2, K)
+
+
+@pytest.mark.parametrize("K", [2, 3])
+def test_scaled_matmul_plain_matches_pallas(K):
+    rng = np.random.default_rng(40 + K)
+    # broadcast batch, Kd = 11 (a tail of 5 padded with EXP_ZERO), N = 1
+    a = rand_scaled(rng, (2, 2, 3, 11), K, decades=6.0)
+    b = rand_scaled(rng, (2, 1, 11, 1), K, decades=6.0)
+    out = tk.mp_matmul(T(a), T(b))
+    assert out.shape == (2, 2, 3, 1)
+    assert same_scaled(out, pk.mp_matmul(J(a), J(b), interpret=True))
+    # exact zeros among the operands keep their EXP_ZERO through the tree
+    a[0][:, 0, 0, :, :4] = 0.0
+    a[1][0, 0, :, :4] = tmp.EXP_ZERO
+    assert same_scaled(tk.mp_matmul(T(a), T(b)), pk.mp_matmul(J(a), J(b), interpret=True))
+
+
+@pytest.mark.parametrize("K", [2, 3])
+def test_scaled_cholesky_plain_matches_pallas(K, monkeypatch):
+    rng = np.random.default_rng(50 + K)
+    A = _spd_scaled(rng, 2, 7, K, decades=5.0)
+    Lp = pk.mp_cholesky(J(A), interpret=True)
+    assert scaled_rel_err(tk.mp_cholesky(T(A)), Lp) < 2.0 ** -(24 * K - 10)
+    monkeypatch.setattr(tmp, "inv_sqrt", lambda m: torch.from_numpy(
+        np.array(jax.lax.rsqrt(jnp.asarray(m.numpy())))))
+    assert same_scaled(tk.mp_cholesky(T(A)), Lp)
+
+
+@pytest.mark.parametrize("K", [2, 3])
+def test_scaled_trsm_plain_matches_pallas(K):
+    rng = np.random.default_rng(60 + K)
+    L = tk.mp_cholesky(T(_spd_scaled(rng, 2, 6, K, decades=4.0)))
+    L = (L.limbs.numpy(), L.exp.numpy())
+    Lt = tuple(np.ascontiguousarray(np.swapaxes(x, -1, -2)) for x in L)
+    B = rand_scaled(rng, (2, 6, 3), K, decades=4.0)
+    for lower, t in ((True, L), (False, Lt)):
+        X = tk.mp_solve_triangular(T(t), T(B), lower=lower)
+        assert same_scaled(X, pk.mp_solve_triangular(J(t), J(B), lower=lower,
+                                                     interpret=True)), lower
+
+
 def test_dispatch_is_by_device_without_fallback():
     """CPU operands run the plain version and launch nothing; operands on
     any other non-CUDA device, or split across devices, raise."""
@@ -93,7 +151,8 @@ def test_dispatch_is_by_device_without_fallback():
     tk.mp_cholesky(tmp.MP(torch.as_tensor(_spd(rng, 2, 3, 2))))
     tk.mp_solve_triangular(a, a)
     assert tk.LAUNCHES == {"mp_matmul": 0, "mp_cholesky": 0,
-                           "mp_solve_triangular": 0}
+                           "mp_solve_triangular": 0, "mp_matmul_scaled": 0,
+                           "mp_cholesky_scaled": 0, "mp_solve_triangular_scaled": 0}
     meta = tmp.MP(torch.empty((2, 2, 3, 3), dtype=torch.float64, device="meta"))
     for call in (lambda: tk.mp_matmul(meta, meta), lambda: tk.mp_cholesky(meta),
                  lambda: tk.mp_solve_triangular(meta, meta),

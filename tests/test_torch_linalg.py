@@ -11,6 +11,12 @@ Tolerances:
     order, so only the last limb differs.
   * min_eigenvalue_estimate: 1e-12 relative (float64 LAPACK eigvalsh on
     both sides, called through different libraries).
+  * scaled operands (float32 limbs, int32 exponents, K32 = 3, entries
+    graded over 8 decades): the refined solve within 2^-(24K-16) relative
+    of the JAX package's and its residual at full precision; the scaled
+    min_eigenvalue_estimate reads the nearest float64 of each entry, so it
+    equals the classic estimate of the same values (the JAX package reads
+    float32 there, its base type on the TPU).
 """
 import numpy as np
 import pytest
@@ -19,7 +25,9 @@ import torch
 from sdpb_tpu.ops import linalg as jla
 from sdpb_tpu_torch.ops import linalg as tla
 
-from torch_parity import J, T, limbs_of, rand_limbs, rel_err
+from sdpb_tpu_torch.ops import mpfloat as tmp
+
+from torch_parity import J, T, limbs_of, rand_limbs, rel_err, scaled_rel_err
 
 torch.set_num_threads(1)
 
@@ -94,3 +102,22 @@ def test_min_eigenvalue_estimate():
     got = tla.min_eigenvalue_estimate(T(A)).numpy()
     want = np.asarray(jla.min_eigenvalue_estimate(J(A)))
     np.testing.assert_allclose(got, want, rtol=1e-12)
+
+
+def test_scaled_refined_solve_and_eigenvalue_estimate():
+    K = 3
+    rng = np.random.default_rng(8)
+    A = _spd(rng, 2, 6, 3)
+    d = 10.0 ** rng.uniform(-2, 2, (2, 6))
+    A = A * d[None, :, :, None] * d[None, :, None, :]
+    A = tmp.f64_limbs_to_scaled_parts((A + np.swapaxes(A, -1, -2)) / 2, K)
+    B = tmp.f64_limbs_to_scaled_parts(rand_limbs(rng, (2, 6, 4), 3), K)
+    x = tla.PosdefSolver(T(A), 2).solve(T(B), n_refine=2)
+    assert scaled_rel_err(x, jla.PosdefSolver(J(A), 2).solve(J(B), n_refine=2)) \
+        < 2.0 ** -(24 * K - 16)
+    assert scaled_rel_err(tla.matmul(T(A), x), T(B)) < 2.0 ** -(24 * K - 16)
+    with pytest.raises(NotImplementedError, match="exponent-tracked"):
+        tla.PosdefSolver(T(A), 2, equilibrate=True)
+    exact = tmp.host_f64_limbs(T(A), 4)
+    got = tla.min_eigenvalue_estimate(T(A))
+    assert torch.equal(got, tla.min_eigenvalue_estimate(T(exact)))

@@ -13,6 +13,18 @@ Tolerances:
   * five free-running iterations through each package's host loop: every
     IterationStats field within 1e-8 relative, the same terminate reason.
   * the CLI's out.txt: objectives within 1e-8 relative of the JAX run's.
+  * the scaled representation (float32 limbs, int32 exponents): staging
+    and the initial state equal to the JAX package's, limbs and
+    exponents.  The JAX package's scaled iteration takes minutes to
+    compile for the CPU, so one scaled iteration (K32 = 3, 72 bits) is
+    run from the JAX classic state rounded into scaled parts and held to
+    the JAX classic iteration from that state: MP statistics within
+    2^-(24K-24) relative, step lengths and the next state within 1e-12
+    relative (both packages take the steps from float64 matrices, which
+    the rounding into 72 bits moves by an ulp here and there), error
+    norms (float32 in the scaled run) within 2^-20 relative; and the
+    scaled CLI's out.txt after 3 iterations within 1e-12 relative of the
+    JAX classic run's objectives.
 Quantities that sit at the rounding floor of the arithmetic (residuals
 of an exact step, ~2^-53K) are compared with an absolute floor of
 2^-(53K-40) in place of the relative bound, since their last bits are
@@ -40,16 +52,20 @@ from sdpb_tpu.models.synthetic import random_sdp
 from sdpb_tpu.solver import solve as jsolve, state as jstate, step as jstep
 from sdpb_tpu.solver.params import SolverParameters
 from sdpb_tpu.utils.strings import limbs_to_mpf, str_to_limbs
+from sdpb_tpu.ops import mpfloat as jmp
 from sdpb_tpu_torch import interop
 from sdpb_tpu_torch.models import sdp as tsdp
-from sdpb_tpu_torch.solver import solve as tsolve, step as tstep
+from sdpb_tpu_torch.ops import mpfloat as tmp
+from sdpb_tpu_torch.solver import solve as tsolve, state as tstate, step as tstep
+from sdpb_tpu_torch.utils.strings import scaled_limbs_to_mpf, str_to_scaled_limbs
 
-from torch_parity import limbs_of, rel_err
+from torch_parity import limbs_of, parts_of, rel_err, same_scaled, scaled_rel_err
 
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 LADDER = REPO / "fixtures" / "ising_ladder_120" / "sdp.zip"
+CERTIFICATE = REPO / "fixtures" / "dim2_certificate" / "sdp.zip"
 
 # (kind, dim, K, factor_limbs); factor 2 at K = 3 exercises refinement
 PROBLEMS = {
@@ -189,6 +205,53 @@ def test_build_device_sdp_ladder_matches():
     assert bk.emb_even.shape == (120, 20, 38) and bk.emb_odd.shape == (120, 18, 38)
 
 
+def _assert_scaled_buckets_equal(port, ref):
+    """Layout, masks, limbs and exponents equal."""
+    assert len(port.buckets) == len(ref.buckets)
+    assert same_scaled(port.b, ref.b) and same_scaled(port.objective_const,
+                                                      ref.objective_const)
+    for pb, rb in zip(port.buckets, ref.buckets):
+        assert (pb.shape.dim, pb.shape.num_points, pb.shape.h_even, pb.shape.h_odd) == \
+            (rb.shape.dim, rb.shape.num_points, rb.shape.h_even, rb.shape.h_odd)
+        for f in ("bases_even", "bases_odd", "emb_even", "emb_odd", "Bmat", "c"):
+            assert same_scaled(getattr(pb, f), getattr(rb, f)), f
+        for f in ("mask", "row_mask", "psd_mask_even", "psd_mask_odd"):
+            a, b = getattr(pb, f).numpy(), np.asarray(getattr(rb, f))
+            assert a.dtype == b.dtype == np.float32 and np.array_equal(a, b), f
+
+
+@pytest.mark.parametrize("source,K32", [("random", 3), ("ladder", 9)])
+def test_build_device_sdp_scaled_matches(source, K32):
+    K64 = -(-(24 * K32) // 53) + 1
+    if source == "random":
+        host = random_sdp(num_blocks=5, dim=2, num_points=5, dual_dim=3, K=K64, seed=4)
+    else:
+        host = read_sdp(LADDER, K64, np.float64)
+    port = tsdp.build_device_sdp(host, "cpu", scaled_limbs=K32)
+    _assert_scaled_buckets_equal(port, jsdp.build_device_sdp(host, scaled_limbs=K32))
+    assert port.b.exp.dtype == torch.int32 and port.b.limbs.dtype == torch.float32
+    with pytest.raises(ValueError, match="host limbs"):
+        tsdp.build_device_sdp(read_sdp(LADDER, 2, np.float64), "cpu", scaled_limbs=9)
+
+
+@pytest.mark.parametrize("K32", [3, 7])
+def test_initial_state_scaled_matches(K32):
+    """X = Omega_p I and Y = Omega_d I with Omega's own exponent; padded
+    diagonals at 1.0 on the CENTER(K) ladder; zeros at EXP_ZERO."""
+    K64 = -(-(24 * K32) // 53) + 1
+    host = random_sdp(num_blocks=5, dim=2, num_points=5, dual_dim=3, K=K64, seed=4)
+    jsd = jsdp.build_device_sdp(host, pad_to=8, scaled_limbs=K32)
+    tsd = interop.device_sdp_from_numpy(jax.tree.map(np.asarray, jsd), "cpu")
+    assert any(float(bk.psd_mask_even.min()) == 0.0 for bk in tsd.buckets)
+    om_p, om_d = str_to_scaled_limbs("1e20", K32), str_to_scaled_limbs("3.5e-7", K32)
+    ref = jax.tree.map(np.asarray, jstate.initial_state(jsd, om_p, om_d))
+    mine = tstate.initial_state(tsd, om_p, om_d)
+    assert same_scaled(mine.y, ref.y)
+    for mb, rb in zip(mine.buckets, ref.buckets):
+        for f in ("x", "X_even", "X_odd", "Y_even", "Y_odd"):
+            assert same_scaled(getattr(mb, f), getattr(rb, f)), f
+
+
 @pytest.mark.parametrize("name", list(PROBLEMS))
 def test_one_iteration_from_identical_state(name):
     _, params, K = _problem(name)
@@ -223,6 +286,54 @@ def test_one_iteration_from_identical_state(name):
     for gb, jb in zip(new.buckets, st2.buckets):
         for f in ("x", "X_even", "X_odd", "Y_even", "Y_odd"):
             _cmp(f, getattr(gb, f), getattr(jb, f).limbs, 1e-12, _floor(K), True)
+
+
+def _to_scaled(x, K32):
+    return tmp.from_parts(*tmp.f64_limbs_to_scaled_parts(limbs_of(x), K32), "cpu")
+
+
+def test_one_scaled_iteration_from_jax_classic_state():
+    """The port's scaled iteration (K32 = 3) from the JAX classic state
+    after one iteration of the certificate, rounded into scaled parts,
+    against the JAX classic iteration from that state (tolerances in the
+    module docstring)."""
+    K32 = 3
+    host, params, K = _problem("cert_K3")
+    sdp_np, st1_np, s2, st2 = _jax_two_iterations("cert_K3")
+    sdp = tsdp.build_device_sdp(host, "cpu", scaled_limbs=K32)
+    st1 = tstate.SolverState(
+        y=_to_scaled(st1_np.y.limbs, K32),
+        buckets=[tstate.BucketState(*(_to_scaled(getattr(bs, f).limbs, K32) for f in (
+            "x", "X_even", "X_odd", "Y_even", "Y_odd"))) for bs in st1_np.buckets])
+    kf, _ = tsolve.initial_factor_limbs(params, K32, scaled=True)
+    jcfg = _jax_cfg(sdp_np, params, K)
+    parse = lambda v: str_to_scaled_limbs(v, K32)
+    tcfg = tstep.StepConfig(
+        total_psd_rows=sdp.total_psd_rows, gamma=jcfg.gamma,
+        feasible_beta_limbs=parse(params.feasible_centering_parameter),
+        infeasible_beta_limbs=parse(params.infeasible_centering_parameter),
+        primal_error_threshold=jcfg.primal_error_threshold,
+        dual_error_threshold=jcfg.dual_error_threshold,
+        max_complementarity=jcfg.max_complementarity,
+        factor_limbs=kf, n_refine=0 if K32 <= kf else -(-K32 // kf),
+        kkt_residual_threshold=jcfg.kkt_residual_threshold, kkt_heal=False)
+    stats, new = tstep.make_iteration(tcfg)(sdp, st1)
+    h = tsolve.to_host(stats)
+    with mpmath.workprec(200):
+        for f in ("primal_objective", "dual_objective", "duality_gap", "mu"):
+            mine, ref = tsolve.host_mpf(getattr(h, f)), limbs_to_mpf(getattr(s2, f).limbs)
+            assert abs(mine - ref) <= mpmath.mpf(2) ** -(24 * K32 - 24) * abs(ref), f
+    for f in ("primal_step", "dual_step"):
+        _cmp(f, getattr(h, f), getattr(s2, f), 1e-12, 0.0)
+    for f in ("primal_error_P", "primal_error_p", "dual_error"):
+        _cmp(f, getattr(h, f), getattr(s2, f), 2.0 ** -20, 2.0 ** -(24 * K32 - 40))
+    assert h.is_pd_feasible == bool(s2.is_pd_feasible)
+    back = lambda m: tmp.host_f64_limbs(m, K)
+    _cmp("y", back(new.y), st2.y.limbs, 1e-12, 2.0 ** -(24 * K32 - 40), True)
+    for gb, jb in zip(new.buckets, st2.buckets):
+        for f in ("x", "X_even", "X_odd", "Y_even", "Y_odd"):
+            _cmp(f, back(getattr(gb, f)), getattr(jb, f).limbs, 1e-12,
+                 2.0 ** -(24 * K32 - 40), True)
 
 
 def _exact_mp_stats(sdp, st):
@@ -331,6 +442,84 @@ def test_cli_on_cpu_matches_jax(tmp_path, monkeypatch):
     assert (tmp_path / "port" / "y.txt").read_text().splitlines()[0] == "1 1"
 
 
+def _out_values(path):
+    out = {}
+    for line in (path / "out.txt").read_text().splitlines():
+        key, val = line.rstrip(";").split("=", 1)
+        out[key.strip()] = val.strip().strip('"')
+    return out
+
+
+def test_scaled_cli_on_cpu_matches_jax(tmp_path, monkeypatch):
+    """python -m sdpb_tpu_torch.cli.sdpb --arithmetic scaled --device cpu on
+    the certificate SDP at 64 bits (3 float32 limbs), 3 iterations, against
+    the JAX classic run of test_cli_on_cpu_matches_jax (the JAX scaled
+    iteration takes minutes to compile for the CPU)."""
+    sdp_zip = _certificate_zip()
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "sdpb_tpu_torch.cli.sdpb", "--device", "cpu",
+         "--arithmetic", "scaled", "-s", str(sdp_zip), "-o", str(tmp_path / "port"),
+         "--precision", "64", "--maxIterations", "3", "--dualityGapThreshold", "1e-12",
+         "--primalErrorThreshold", "1e-12", "--dualErrorThreshold", "1e-12",
+         "--initialMatrixScalePrimal", "1e2", "--initialMatrixScaleDual", "1e2"],
+        capture_output=True, text=True, env=env, cwd=str(REPO), timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    assert "precision       : 64 bits (3 scaled float32 limbs + exponent)" in proc.stdout
+    assert "maxIterations exceeded" in proc.stdout
+
+    monkeypatch.setattr(jsolve, "jax", _RecordingJax(_jax_iteration("cert_K3")[1]))
+    _, params, K = _problem("cert_K3")
+    params.max_iterations = 3
+    jsdp_ = jsdp.build_device_sdp(read_sdp(sdp_zip, K, np.float64))
+    jres = jsolve.run_solver(jsdp_, params, verbosity=0, chunk_iterations=1)
+    jax_save_solution(tmp_path / "jax", jres, jsdp_, verbosity=0)
+
+    mine, ref = _out_values(tmp_path / "port"), _out_values(tmp_path / "jax")
+    assert mine["terminateReason"] == ref["terminateReason"]
+    assert len(mine["primalObjective"].lstrip("-").split("e")[0]) - 1 == 22  # digits of 72 bits
+    with mpmath.workprec(200):
+        for key in ("primalObjective", "dualObjective"):
+            a, b = mpmath.mpf(mine[key]), mpmath.mpf(ref[key])
+            assert abs(a - b) <= mpmath.mpf("1e-12") * abs(b), key
+    assert (tmp_path / "port" / "y.txt").read_text().splitlines()[0] == "1 1"
+
+
+def test_scaled_cli_refuses_the_wide_path_and_a_missing_card():
+    """Above 9 float32 limbs (--precision > 208) the scaled CLI stops and
+    names the unported wide path; --device cuda without CUDA stops too."""
+    from sdpb_tpu_torch.cli import sdpb as cli
+
+    assert cli.limbs_for_precision(208, 24) == 9
+    assert cli.limbs_for_precision(209, 24) == 10
+    for prec in ("209", "216", "400"):
+        with pytest.raises(SystemExit, match="ROADMAP B5"):
+            cli.run(["-s", str(CERTIFICATE), "--arithmetic", "scaled", "--device", "cpu",
+                     "--precision", prec])
+    if not torch.cuda.is_available():
+        for arith in ("classic", "scaled"):
+            with pytest.raises(SystemExit, match="CUDA is not available"):
+                cli.run(["-s", str(CERTIFICATE), "--arithmetic", arith])
+
+
+def test_committed_certificate_matches_sdp2input():
+    """fixtures/dim2_certificate/sdp.zip (what chip_smoke.py and the port's
+    tests read, so that the port never runs the JAX converter) is what
+    sdpb_tpu.cli.sdp2input makes from the certificate PMP at 400 bits."""
+    from sdpb_tpu_torch.io.sdp_zip import read_sdp as port_read_sdp
+
+    fresh = _certificate_zip()
+    for K in (3, 8):
+        for a, b in ((port_read_sdp(CERTIFICATE, K), read_sdp(fresh, K, np.float64)),
+                     (read_sdp(CERTIFICATE, K, np.float64), read_sdp(fresh, K, np.float64))):
+            assert np.array_equal(a.objective_const, b.objective_const)
+            assert np.array_equal(a.b, b.b) and len(a.blocks) == len(b.blocks) == 1
+            for x, y in zip(a.blocks, b.blocks):
+                assert (x.index, x.dim, x.num_points) == (y.index, y.dim, y.num_points)
+                for f in ("bases_even", "bases_odd", "c", "B"):
+                    assert np.array_equal(getattr(x, f), getattr(y, f)), f
+
+
 def test_kkt_guard_heals_then_warns(capsys):
     """A KKT threshold no solve can meet trips the guard on every
     iteration: below the factor cap the host loop bumps the factor
@@ -358,16 +547,79 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
             cli.run(["-s", str(LADDER), "--device", "cpu", *extra])
 
 
-def test_port_never_imports_jax():
-    code = (
-        "import importlib, pkgutil, sys\n"
-        "import sdpb_tpu_torch\n"
-        "for m in pkgutil.walk_packages(sdpb_tpu_torch.__path__, 'sdpb_tpu_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
-        "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
-        "print(len([k for k in sys.modules if k.startswith('sdpb_tpu_torch')]))\n")
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, env=env, cwd=str(REPO), timeout=300)
+_GUARD = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+class Blocked(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "sdpb_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Blocked())
+import sdpb_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(sdpb_tpu_torch.__path__, "sdpb_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+from sdpb_tpu_torch.cli import sdpb as cli
+for arith in ("classic", "scaled"):
+    res = cli.run(["-s", sys.argv[1], "-o", sys.argv[2] + "/" + arith, "--device", "cpu",
+                   "--precision", "64", "--arithmetic", arith, "--maxIterations", "2",
+                   "--verbosity", "0"])
+    assert str(res.terminate_reason) == "maxIterations exceeded", res.terminate_reason
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sdpb_tpu"))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def _jax_package_references(path: Path, root: Path = REPO) -> list:
+    """Imports of jax or of the JAX package (sdpb_tpu, not sdpb_tpu_torch)
+    in a source file: its import statements, relative imports that leave
+    sdpb_tpu_torch, and dotted module names or `-m sdpb_tpu` anywhere in
+    its text (strings a subprocess or importlib would run)."""
+    import ast
+    import re
+
+    text = path.read_text()
+    found = []
+    rel = path.relative_to(root)
+    depth = len(rel.parts) - 1            # packages above the module
+    for node in ast.walk(ast.parse(text)):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level and (rel.parts[0] != "sdpb_tpu_torch" or node.level > depth):
+                found.append(f"{rel}:{node.lineno}: relative import leaves the port")
+            names = [node.module or ""] if not node.level else []
+        for n in names:
+            if n.split(".")[0] in ("jax", "jaxlib", "sdpb_tpu"):
+                found.append(f"{rel}:{node.lineno}: import {n}")
+    for m in re.finditer(r"(?<![\w/.])(sdpb_tpu\.[A-Za-z_]|-m\s+sdpb_tpu\b)", text):
+        found.append(f"{rel}:{text.count(chr(10), 0, m.start()) + 1}: {m.group(0)}")
+    return found
+
+
+def test_port_never_imports_jax(tmp_path):
+    """With jax and the JAX package blocked at import, every module of the
+    port imports and the CLI solves (2 iterations of the certificate, in
+    both representations); no source of the port, nor chip_smoke.py,
+    names the JAX package as a module."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", _GUARD, str(CERTIFICATE), str(tmp_path)],
+                          capture_output=True, text=True, env=env, cwd=str(REPO),
+                          timeout=600)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+    sources = sorted((REPO / "sdpb_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(sources) >= 20
+    found = [f for p in sources for f in _jax_package_references(p)]
+    assert not found, found
+    # the scan finds what it looks for
+    probe = tmp_path / "sdpb_tpu_torch" / "io" / "probe.py"
+    probe.parent.mkdir(parents=True)
+    probe.write_text("from sdpb_tpu.io import sdp_zip\nfrom ...sdpb_tpu import x\n"
+                     "import jax.numpy\nrun = 'python -m sdpb_tpu.cli.sdp2input'\n")
+    lines = {f.split(":")[1] for f in _jax_package_references(probe, tmp_path)}
+    assert lines == {"1", "2", "3", "4"}

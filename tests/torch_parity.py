@@ -31,21 +31,67 @@ def rand_limbs(rng, shape, K, positive=False, spread=0.0):
     return out
 
 
+def rand_scaled(rng, shape, K, decades=10.0, positive=False):
+    """Scaled parts (float32 limbs [K, *shape], int32 exp [*shape]) of
+    random values over +-`decades` decades with full mantissas: float64
+    limb stacks as rand_limbs makes them, converted exactly by the port's
+    f64_limbs_to_scaled_parts (as tests/test_mpfloat_scaled.py:33 builds
+    its inputs)."""
+    shape = tuple(shape)
+    K64 = -(-(24 * K) // 53) + 1
+    l64 = rand_limbs(rng, shape, K64, positive=positive)
+    l64 *= 10.0 ** rng.uniform(-decades, decades, shape)
+    return tmp.f64_limbs_to_scaled_parts(l64, K)
+
+
 def J(limbs):
-    """The limbs as a JAX package MP."""
+    """The limbs (or scaled (limbs, exp) parts) as a JAX package MP."""
     import jax.numpy as jnp
     from sdpb_tpu.ops import mpfloat as jmp
 
+    if isinstance(limbs, tuple):
+        return jmp.MP(jnp.asarray(limbs[0], dtype=jnp.float32),
+                      jnp.asarray(limbs[1], dtype=jnp.int32))
     return jmp.MP(jnp.asarray(limbs, dtype=jnp.float64))
 
 
 def T(limbs, device="cpu") -> tmp.MP:
-    """The limbs as a port MP (a copy) on `device`."""
+    """The limbs (or scaled (limbs, exp) parts) as a port MP (a copy) on
+    `device`."""
+    if isinstance(limbs, tuple):
+        return tmp.MP(torch.tensor(np.asarray(limbs[0], dtype=np.float32), device=device),
+                      torch.tensor(np.asarray(limbs[1], dtype=np.int32), device=device))
     return tmp.MP(torch.tensor(np.asarray(limbs, dtype=np.float64), device=device))
 
 
+def parts_of(x):
+    """Host (limbs, exp) of a scaled JAX or port MP."""
+    if isinstance(x, tmp.MP):
+        return x.limbs.detach().cpu().numpy(), x.exp.detach().cpu().numpy()
+    return np.asarray(x.limbs), np.asarray(x.exp)
+
+
+def same_scaled(x, y) -> bool:
+    """Scaled values equal limb for limb (IEEE ==) and exponent for
+    exponent."""
+    (xl, xe), (yl, ye) = parts_of(x), parts_of(y)
+    return xl.shape == yl.shape and np.array_equal(xl, yl) and np.array_equal(xe, ye)
+
+
+def scaled_rel_err(a, b) -> float:
+    """max over elements of |a - b| / |b| for scaled values, exactly (the
+    difference taken in float64 limbs converted from the parts; values
+    beyond float64's range are not compared this way)."""
+    (al, ae), (bl, be) = parts_of(a), parts_of(b)
+    K64 = -(-(24 * al.shape[0]) // 53) + 2
+    x = tmp.scaled_parts_to_f64_limbs(al, ae, K64)
+    y = tmp.scaled_parts_to_f64_limbs(bl, be, K64)
+    return elementwise_rel_err(x, y)
+
+
 def limbs_of(x) -> np.ndarray:
-    """Host float64 limbs of a JAX or port MP (or raw array)."""
+    """Host float64 limbs of a JAX or port MP (or raw array); scaled values
+    as their float32 limbs."""
     if isinstance(x, tmp.MP):
         return x.limbs.detach().cpu().numpy()
     if hasattr(x, "limbs"):
