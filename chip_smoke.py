@@ -6,7 +6,7 @@
 Run from the root of a checkout.  Phases, each fatal on failure:
   1. device: nvidia-smi name and power limit, torch / CUDA / nvcc versions;
   2. build: the CUDA kernels, from sdpb_tpu_torch/csrc, all limb counts,
-     classic and scaled;
+     classic and scaled, and the wide GEMM for every word size;
   3. exactness: TwoSum and TwoProd exact on the card, in plain torch and
      inside the kernels (through 1 x 1 and 1 x 2 mp_matmuls), float64 and
      float32;
@@ -26,7 +26,15 @@ Run from the root of a checkout.  Phases, each fatal on failure:
   9. the ladder in the scaled representation, 9 float32 limbs (216 bits of
      mantissa), same settings and iterations as phase 6: finite statistics,
      falling mu, s/iteration, peak memory, launches, and the digits its
-     objectives share with phase 6's classic run.
+     objectives share with phase 6's classic run;
+ 10. the wide (two-word) GEMM against its plain version at the ladder's
+     shapes, Kg=9 (the 400-bit contract) and Kg=5 (216 bits): limbs and
+     exponents bit-identical, spot checks against mpmath, times, bounds;
+ 11. the ladder at --precision 400 in the wide representation (2 words x 9
+     float32 limbs) and classic (K=8), WIDE_ITERATIONS + 1 iterations each:
+     finite statistics, falling mu, out.txt, the wide GEMM and the scaled
+     factor and solve launched, identical step lengths, and the digits the
+     objectives share (at least 70: one 216-bit word holds ~65).
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is the kernels' JSON record, and the line before that the card's name
 and power limit.  Without CUDA, or outside a checkout, the script exits
@@ -45,6 +53,9 @@ ROOT = Path(__file__).resolve().parent
 LADDER = ROOT / "fixtures" / "ising_ladder_120" / "sdp.zip"
 CERTIFICATE = ROOT / "fixtures" / "dim2_certificate" / "sdp.zip"
 LADDER_ITERATIONS = 10
+WIDE_ITERATIONS = 2
+# the ladder solve's GEMM shapes: the pairing products and the Q product
+GEMM_SHAPES = ((120, 20, 20, 19), (120, 15, 57, 15))
 Y_OPT = "-1.685650770619604657526474"   # bisected independently in mpmath
 # (name, source, TPU kernel replaced): the classic build replaces the
 # scaled=False branch of each Pallas kernel, the scaled build (the same
@@ -57,6 +68,8 @@ KERNELS = {
     "mp_solve_triangular": ("sdpb_tpu_torch/csrc/mp_trsm.cu",
                             "sdpb_tpu/ops/pallas_kernels.py:576"),
 }
+WIDE_KERNEL = ("mp_matmul_wide", "sdpb_tpu_torch/csrc/mp_wide_matmul.cu",
+               "sdpb_tpu/ops/pallas_kernels.py:161")
 # H100 SXM at 700 W (NVIDIA data sheet): non-fused add/mul per second on
 # the CUDA cores (34 and 67 TFLOP/s count a fused multiply-add as two) and
 # device memory bytes per second
@@ -68,8 +81,7 @@ SOLVE_FLAGS = ("--dualityGapThreshold", "1e-12", "--primalErrorThreshold", "1e-1
                "--verbosity", "0")
 LADDER_FLAGS = ("--dualityGapThreshold", "1e-20", "--primalErrorThreshold", "1e-20",
                 "--dualErrorThreshold", "1e-20", "--initialMatrixScalePrimal", "1e4",
-                "--initialMatrixScaleDual", "1e4",
-                "--maxIterations", str(LADDER_ITERATIONS))
+                "--initialMatrixScaleDual", "1e4")
 
 
 class PhaseError(RuntimeError):
@@ -108,8 +120,11 @@ def build_phase(kernels):
     for scaled in kernels.REPRESENTATIONS:
         for K in kernels.K_RANGE:
             kernels._library(K, scaled)
+    for K in kernels.WIDE_KG:
+        kernels._library(K, kernels.WIDE)
     print(f"build: {time.time() - t0:.1f} s for K={list(kernels.K_RANGE)}, classic "
-          f"and scaled (compiled now: {len(built)} libraries)")
+          f"and scaled, and the wide GEMM for Kg={list(kernels.WIDE_KG)} "
+          f"(compiled now: {len(built)} libraries)")
     return time.time() - t0
 
 
@@ -241,10 +256,41 @@ def mp_op_counts(K, scaled):
     return add, mul, rsqrt, recip
 
 
+def _sweep_ops(m, K, chain):
+    """Float operations of mpw::sweeps (mp_wide.cuh) over m rows."""
+    return 6 * sum(m - 1 - k for k in range(min(K, m - 1))) + \
+        ((m - 1 - K) if chain and m - 1 > K else 0)
+
+
+def wide_op_counts(K):
+    """Float operations of one wide fused multiply-add (mpw::fma_acc) and of
+    one word TwoSum (mpw::add_full) at Kg = K, counted from mp_wide.cuh:
+    TwoSum 6, quick TwoSum 3, split 5, a Dekker product and error 9, a
+    staged power-of-two scaling 3 multiplies (2 for the limb lifts); the
+    integer exponent work and the exponent-field lifts are not counted."""
+    finish = lambda m: _sweep_ops(m, K, True) + 3 * (2 * K - 1) + 3 * K
+    extract = 12 * (K - 1) + 3 * K
+    products = 10 * K + 9 * K * K
+    nf, nm = 2 * K * K, K * K + K - 1
+    add_st = 6 * K + finish(2 * K + 2)
+    mul_st = 2 * K + products + 2 * nm + finish(nm + 2)
+    add_full = 12 * K + _sweep_ops(2 * K, K, False) + extract + finish(4 * K + 2)
+    mul_full = 4 * K + products + 6 * nf + _sweep_ops(nf, K, False) + extract + \
+        finish(2 * nf + 2)
+    return mul_full + 2 * mul_st + 4 * add_st + add_full, add_full
+
+
 def kernel_bound(name, shape, K, scaled):
     """(bound_ms, bound_by): the larger of the float operations over the
     card's rate and the bytes (inputs read once, outputs written once) over
-    its memory rate, for one call at `shape`."""
+    its memory rate, for one call at `shape` (the wide GEMM: K = Kg, two
+    float32 words per element)."""
+    if name == "mp_matmul_wide":
+        fma, add_full = wide_op_counts(K)
+        B, M, Kd, N = shape
+        t_ops = B * M * N * (Kd * fma + add_full) / OPS_PER_S[True]
+        t_bytes = B * (M * Kd + Kd * N + M * N) * 2 * (4 * K + 4) / BYTES_PER_S
+        return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
     add, mul, rsqrt, recip = mp_op_counts(K, scaled)
     per_elem = K * (4 if scaled else 8) + (4 if scaled else 0)
     if name == "mp_matmul":
@@ -310,7 +356,7 @@ def kernel_phase(torch, mp, kernels, dev, scaled):
               f"{name} {shape}: spot check vs mpmath {worst}")
         return err, float(worst)
 
-    for (B, M, Kd, N) in ((120, 20, 20, 19), (120, 15, 57, 15)):
+    for (B, M, Kd, N) in GEMM_SHAPES:
         a = _limbs(rng, (B, M, Kd), K64, decades=decades)
         b = _limbs(rng, (B, Kd, N), K64, decades=decades)
         A, Bm = C(a, Kg), C(b, Kg)
@@ -389,6 +435,66 @@ def kernel_phase(torch, mp, kernels, dev, scaled):
     return rows
 
 
+def _wide_operand(rng, shape, Kg, decades):
+    """A random two-word MPW on the CPU: float64 limb stacks with fresh bits
+    in every limb (past the 48 Kg bits the two words hold), staged exactly."""
+    from sdpb_tpu_torch.ops import mpwide
+    K64 = -(-(48 * Kg) // 53) + 2
+    return mpwide.wide_parts_to_mp(
+        mpwide.f64_limbs_to_wide_parts(_limbs(rng, shape, K64, decades=decades), 2 * Kg),
+        "cpu")
+
+
+def wide_kernel_phase(torch, kernels, dev):
+    """Phase 10: the wide GEMM against its plain version at the ladder's
+    shapes, Kg = 9 and 5: bit-identical words, mpmath spot checks within
+    2^-(48 Kg - 26), kernel ms (median of 5), plain ms (once), bound."""
+    phase("10. wide GEMM against its plain version (ladder shapes)")
+    import mpmath
+    import numpy as np
+    from sdpb_tpu_torch.ops import mpfloat as mp, mpwide
+    rng = np.random.default_rng(10)
+    rows = []
+    for Kg in (9, 5):
+        for (B, M, Kd, N) in GEMM_SHAPES:
+            a = _wide_operand(rng, (B, M, Kd), Kg, 2.0)
+            b = _wide_operand(rng, (B, Kd, N), Kg, 2.0)
+            on = lambda x: mpwide.MPW(mp.MP(w.limbs.to(dev), w.exp.to(dev)) for w in x.words)
+            A, Bm = on(a), on(b)
+            ok = kernels.mp_matmul_wide(A, Bm)
+            op, pms = _timed_once(torch, lambda: kernels.mp_matmul_wide_plain(A, Bm))
+            err = max(_err(k, p) for k, p in zip(ok.words, op.words))
+            check(err == 0.0, f"mp_matmul_wide {(B, M, Kd, N)} Kg={Kg}: kernel differs "
+                              f"from plain (max {err})")
+            parts = [[(w.limbs.cpu().numpy(), w.exp.cpu().numpy()) for w in x.words]
+                     for x in (a, b, ok)]
+
+            def val(p, idx):
+                return mpmath.fsum(_mpf(l[(slice(None),) + idx], e[idx]) for l, e in p)
+
+            with mpmath.workprec(48 * Kg + 120):
+                worst = mpmath.mpf(0)
+                for i in range(20):
+                    r = np.random.default_rng(300 + i)
+                    bi, mi, ni = r.integers(B), r.integers(M), r.integers(N)
+                    terms = [val(parts[0], (bi, mi, t)) * val(parts[1], (bi, t, ni))
+                             for t in range(Kd)]
+                    worst = max(worst, abs(val(parts[2], (bi, mi, ni)) - mpmath.fsum(terms))
+                                / mpmath.fsum(abs(t) for t in terms))
+                check(worst < mpmath.mpf(2) ** -(48 * Kg - 26),
+                      f"mp_matmul_wide Kg={Kg}: spot check vs mpmath {worst}")
+            ms = _time_ms(torch, lambda: kernels.mp_matmul_wide(A, Bm))
+            bound, by = kernel_bound("mp_matmul_wide", (B, M, Kd, N), Kg, True)
+            rows.append(("mp_matmul_wide", f"[{B},{M},{Kd}]@[{B},{Kd},{N}] Kg={Kg}",
+                         err, float(worst), ms, pms, bound, by))
+    print(f"{'kernel':22s} {'shape':40s} {'max|k-p|':>9s} {'vs mpmath':>10s} "
+          f"{'kernel ms':>10s} {'plain ms':>10s} {'bound ms':>10s} bound by")
+    for name, shape, err, worst, ms, pms, bound, by in rows:
+        print(f"{name:22s} {shape:40s} {err:9.1e} {worst:10.2e} {ms:10.3f} "
+              f"{pms:10.1f} {bound:10.4f} {by}")
+    return rows
+
+
 def _y_value(res):
     """y* of the one-dimensional dual as an mpmath value."""
     import numpy as np
@@ -426,69 +532,111 @@ def certificate_phase(torch, kernels, cli, dev, scaled):
     return {"iterations": res.iterations, "seconds": dt, "dy": float(dy)}
 
 
-def ladder_phase(torch, kernels, cli, dev, scaled, classic=None):
+def _ladder_run(torch, kernels, cli, dev, prec, iterations, check_path):
+    """One CLI run of the ladder for iterations + 1 iterations: finite
+    statistics, positive steps, falling mu, out.txt written, and every
+    kernel of `check_path` launched in this run (counts set to 0 just
+    before it, read just after)."""
+    from sdpb_tpu_torch.solver.solve import host_mpf
+    import numpy as np
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        res = cli.run(["-s", str(LADDER), "-o", str(Path(tmp) / "out"),
+                       "--device", str(dev), *prec, *LADDER_FLAGS,
+                       "--maxIterations", str(iterations)])
+        wall = time.time() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        check((Path(tmp) / "out" / "out.txt").exists(), "out.txt not written")
+    hist = res.history
+    check(len(hist) >= iterations, f"only {len(hist)} iterations ran")
+    for i, st in enumerate(hist):
+        for name in st._fields:
+            v = getattr(st, name)
+            for w in (v if isinstance(v, list) else [v]):
+                w = w[0] if isinstance(w, tuple) else w
+                check(np.all(np.isfinite(np.asarray(w, dtype=float))),
+                      f"iteration {i + 1}: {name} not finite")
+        check(st.primal_step > 0 and st.dual_step > 0, f"iteration {i + 1}: step <= 0")
+    mus = [float(host_mpf(st.mu)) for st in hist]
+    check(all(b < a for a, b in zip(mus, mus[1:])), f"mu does not fall: {mus}")
+    its = res.iteration_seconds
+    steady = sorted(its[1:])[len(its[1:]) // 2] if len(its) > 1 else its[0]
+    print(f"{' '.join(prec)}: {res.terminate_reason}; {len(hist)} iterations in "
+          f"{sum(its):.1f} s (wall {wall:.1f} s incl. reading the zip); first "
+          f"{its[0]:.2f} s, steady median {steady:.3f} s/iteration; peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches {launches}")
+    print(f"mu: {' '.join(f'{m:.3e}' for m in mus)}")
+    check(all(launches[n] > 0 for n in check_path), f"a kernel did not run: {launches}")
+    return {"launches": launches, "s_per_it": steady, "peak_bytes": peak, "history": hist,
+            "iterations": len(hist)}
+
+
+def _shared_digits(mine, ref):
+    """(least significant digits the objectives share over the iterations,
+    iterations with identical step lengths)."""
     from sdpb_tpu_torch.solver.solve import host_mpf
     import mpmath
-    import numpy as np
+    digits, same_steps = math.inf, 0
+    with mpmath.workprec(600):
+        for a_st, b_st in zip(mine["history"], ref["history"]):
+            same_steps += (a_st.primal_step, a_st.dual_step) == \
+                (b_st.primal_step, b_st.dual_step)
+            for f in ("primal_objective", "dual_objective"):
+                a, b = host_mpf(getattr(a_st, f)), host_mpf(getattr(b_st, f))
+                if a != b:
+                    digits = min(digits, float(-mpmath.log10(abs(a - b) / abs(b))))
+    return digits, same_steps
+
+
+def ladder_phase(torch, kernels, cli, dev, scaled, classic=None):
     if scaled:
-        # --precision 208 takes 9 float32 limbs (216 bits of mantissa, with
-        # the 8 guard bits); 216 would need 10, the unported wide path
+        # --precision 208 takes 9 float32 limbs, one scaled word (216 bits
+        # of mantissa, with the 8 guard bits); phase 11 runs two words
         phase(f"9. ising ladder, scaled, 9 float32 limbs (216 bits), "
               f"{LADDER_ITERATIONS} iterations")
         prec = ["--precision", "208", "--arithmetic", "scaled"]
     else:
         phase(f"6. ising ladder, 120 blocks, 216 bits, {LADDER_ITERATIONS} iterations")
         prec = ["--precision", "216"]
-    with tempfile.TemporaryDirectory() as tmp:
-        kernels.reset_launches()
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.time()
-        res = cli.run(["-s", str(LADDER), "-o", str(Path(tmp) / "out"),
-                       "--device", str(dev), *prec, *LADDER_FLAGS])
-        wall = time.time() - t0
-        launches = dict(kernels.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated(dev)
-    hist = res.history
-    check(len(hist) >= LADDER_ITERATIONS, f"only {len(hist)} iterations ran")
-    for i, st in enumerate(hist):
-        for name in st._fields:
-            v = getattr(st, name)
-            v = v[0] if isinstance(v, tuple) else v
-            check(np.all(np.isfinite(np.asarray(v, dtype=float))),
-                  f"iteration {i + 1}: {name} not finite")
-        check(st.primal_step > 0 and st.dual_step > 0, f"iteration {i + 1}: step <= 0")
-    mus = [float(host_mpf(st.mu)) for st in hist]
-    check(all(b < a for a, b in zip(mus, mus[1:])), f"mu does not fall: {mus}")
-    its = res.iteration_seconds
-    steady = sorted(its[1:])[len(its[1:]) // 2] if len(its) > 1 else its[0]
-    print(f"{res.terminate_reason}; {len(hist)} iterations in {sum(its):.1f} s "
-          f"(wall {wall:.1f} s incl. reading the zip); first {its[0]:.2f} s, "
-          f"steady median {steady:.3f} s/iteration; peak device memory "
-          f"{peak / 2**30:.2f} GiB; launches {launches}")
-    print(f"mu: {' '.join(f'{m:.3e}' for m in mus)}")
     path = [kernels.counter(n, scaled) for n in kernels.KERNEL_NAMES]
-    check(all(launches[n] > 0 for n in path), f"a kernel did not run: {launches}")
-    out = {"launches": launches, "s_per_it": steady, "peak_bytes": peak, "history": hist}
+    out = _ladder_run(torch, kernels, cli, dev, prec, LADDER_ITERATIONS, path)
     if classic is not None:
-        # significant digits the objectives share with the classic run,
-        # the least over iterations and over the two objectives
-        digits = math.inf
-        same_steps = 0
-        with mpmath.workprec(400):
-            for mine, ref in zip(hist, classic["history"]):
-                same_steps += (mine.primal_step, mine.dual_step) == \
-                    (ref.primal_step, ref.dual_step)
-                for f in ("primal_objective", "dual_objective"):
-                    a, b = host_mpf(getattr(mine, f)), host_mpf(getattr(ref, f))
-                    if a != b:
-                        digits = min(digits, float(-mpmath.log10(abs(a - b) / abs(b))))
+        digits, same_steps = _shared_digits(out, classic)
         print(f"objectives agree with the classic run to {digits:.1f} significant "
-              f"digits over {len(hist)} iterations, step lengths identical in "
-              f"{same_steps}; s/iteration scaled {steady:.3f} vs classic "
+              f"digits over {out['iterations']} iterations, step lengths identical in "
+              f"{same_steps}; s/iteration scaled {out['s_per_it']:.3f} vs classic "
               f"{classic['s_per_it']:.3f}")
         check(digits >= 15, f"scaled objectives share only {digits:.1f} digits")
         out["digits"] = digits
     return out
+
+
+def wide_ladder_phase(torch, kernels, cli, dev):
+    """Phase 11: the ladder at the reference's default --precision 400 in
+    the wide representation (17 float32 limbs -> 2 words x 9) and classic
+    (K=8): identical steps, at least 70 shared digits."""
+    phase(f"11. ising ladder at --precision 400: wide (2 words x 9 float32 limbs) "
+          f"and classic (K=8), {WIDE_ITERATIONS + 1} iterations each")
+    wide = _ladder_run(torch, kernels, cli, dev, ["--precision", "400", "--arithmetic",
+                                                  "scaled"], WIDE_ITERATIONS,
+                       ["mp_matmul_wide", "mp_cholesky_scaled",
+                        "mp_solve_triangular_scaled"])
+    classic = _ladder_run(torch, kernels, cli, dev, ["--precision", "400"], WIDE_ITERATIONS,
+                          [kernels.counter(n, False) for n in kernels.KERNEL_NAMES])
+    digits, same_steps = _shared_digits(wide, classic)
+    print(f"wide objectives agree with classic K=8 to {digits:.1f} significant digits "
+          f"over {wide['iterations']} iterations, step lengths identical in {same_steps}; "
+          f"s/iteration wide {wide['s_per_it']:.3f} vs classic {classic['s_per_it']:.3f}; "
+          f"peak {wide['peak_bytes'] / 2**30:.2f} vs {classic['peak_bytes'] / 2**30:.2f} GiB")
+    check(same_steps == wide["iterations"] == classic["iterations"],
+          f"step lengths differ from the classic run's ({same_steps} of "
+          f"{wide['iterations']} identical)")
+    check(digits >= 70, f"wide objectives share only {digits:.1f} digits with classic")
+    wide["digits"], wide["classic"] = digits, classic
+    return wide
 
 
 def main():
@@ -516,6 +664,8 @@ def main():
     srows = kernel_phase(torch, mp, kernels, dev, scaled=True)
     scert = certificate_phase(torch, kernels, cli, dev, scaled=True)
     sladder = ladder_phase(torch, kernels, cli, dev, scaled=True, classic=ladder)
+    wrows = wide_kernel_phase(torch, kernels, dev)
+    wladder = wide_ladder_phase(torch, kernels, cli, dev)
     check("jax" not in sys.modules, "the port imported jax")
     check(not any(m == "sdpb_tpu" or m.startswith("sdpb_tpu.") for m in sys.modules),
           "the port imported the JAX package")
@@ -532,13 +682,25 @@ def main():
                            "ms": first[4], "plain_ms": first[5],
                            "bound_ms": first[6], "bound_by": first[7],
                            "library_ms": None})
+    name, source, replaces = WIDE_KERNEL
+    first = [r for r in wrows if r[1].endswith("Kg=9")][-1]
+    record.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                   "launches": wladder["launches"][name],
+                   "max_abs_err": max(r[2] for r in wrows), "ms": first[4],
+                   "plain_ms": first[5], "bound_ms": first[6], "bound_by": first[7],
+                   "library_ms": None})
+    wc = wladder["classic"]
     print(f"\nsummary: build {build_s:.1f} s; certificate {cert['iterations']} "
           f"iterations classic, {scert['iterations']} scaled; ladder "
           f"{ladder['s_per_it']:.3f} s/iteration classic (K=5), "
           f"{sladder['s_per_it']:.3f} scaled (K=9); peak "
           f"{ladder['peak_bytes'] / 2**30:.2f} / {sladder['peak_bytes'] / 2**30:.2f} GiB; "
-          f"objectives shared to {sladder['digits']:.1f} digits; "
-          f"total {time.time() - t_start:.1f} s")
+          f"objectives shared to {sladder['digits']:.1f} digits; at 400 bits "
+          f"{wladder['s_per_it']:.3f} s/iteration wide (2x9) vs {wc['s_per_it']:.3f} "
+          f"classic (K=8), peak {wladder['peak_bytes'] / 2**30:.2f} / "
+          f"{wc['peak_bytes'] / 2**30:.2f} GiB, {wladder['digits']:.1f} digits shared, "
+          f"wide GEMM launches {wladder['launches']['mp_matmul_wide']} in "
+          f"{wladder['iterations']} iterations; total {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,10 @@
 Same solver flags and the same output files as the JAX package's CLI
 (sdpb_tpu/cli/sdpb.py).  `--arithmetic` picks the representation, which the
 JAX CLI picks by platform: classic float64 limbs (the default; any
-precision) or scaled float32 limbs with an int32 exponent per element (at
-most 9 limbs, 216 bits; the wide representation beyond is not ported).
+precision) or scaled float32 limbs with an int32 exponent per element: up
+to 9 limbs (216 bits) one scaled word, 10-18 limbs (--precision 209-424,
+covering the reference's default 400) the wide representation of two
+words of Kg limbs.  More than 18 scaled limbs (three words) are refused.
 The device defaults to `cuda` and is never chosen silently: without CUDA
 the run stops unless `--device cpu` is given.  Checkpoints are not written
 yet, and resuming one or running several processes is refused.
@@ -24,6 +26,8 @@ import torch
 from .common import add_solver_options, parse_with_param_file, solver_params_from_args
 
 _REFUSED = ("initialCheckpointDir", "coordinator", "numProcesses", "processId")
+# two scaled words of at most 9 limbs: the wide GEMM kernel takes G = 2
+MAX_WIDE_LIMBS = 18
 
 
 def limbs_for_precision(precision_bits: int, mant_bits: int = 53) -> int:
@@ -60,7 +64,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--arithmetic", choices=("classic", "scaled"), default="classic",
                    help="MP representation: classic float64 limbs (any "
                         "precision) or scaled float32 limbs with an int32 "
-                        "exponent per element (up to 216 bits).")
+                        "exponent per element (one word up to 216 bits, two "
+                        "words up to 424).")
     for name in _REFUSED:
         p.add_argument(f"--{name}", default=None, help=argparse.SUPPRESS)
     add_solver_options(p)
@@ -86,12 +91,12 @@ def run(argv=None):
     scaled_limbs = 0
     if args.arithmetic == "scaled":
         scaled_limbs = limbs_for_precision(params.precision, 24)
-        if scaled_limbs > 9:
+        if scaled_limbs > MAX_WIDE_LIMBS:
             raise SystemExit(
                 f"--precision {params.precision} needs {scaled_limbs} scaled "
-                f"float32 limbs; the scaled representation holds at most 9 "
-                f"(216 bits), and the wide one beyond it is not ported "
-                f"(ROADMAP B5).  Use --arithmetic classic.")
+                f"float32 limbs; the port's wide representation holds at most "
+                f"{MAX_WIDE_LIMBS} (two words, --precision 424), three words "
+                f"are not ported (ROADMAP B7).  Use --arithmetic classic.")
     device = resolve_device(args.device)
 
     from ..io.sdp_zip import read_sdp
@@ -115,7 +120,12 @@ def run(argv=None):
         print("SDPB PyTorch solver")
         print(f"SDP directory   : {sdp_path}")
         print(f"out directory   : {out_dir}")
-        if scaled_limbs:
+        if scaled_limbs > 9:
+            from ..ops.mpwide import wide_config
+            G, Kg = wide_config(scaled_limbs)
+            print(f"precision       : {params.precision} bits ({G} words × {Kg} "
+                  f"scaled float32 limbs)")
+        elif scaled_limbs:
             print(f"precision       : {params.precision} bits ({scaled_limbs} "
                   f"scaled float32 limbs + exponent)")
         else:

@@ -5,8 +5,8 @@ leaves (e.g. `jax.tree.map(np.asarray, x)` on the JAX side), read here by
 attribute only, so this module never imports JAX yet both packages can
 iterate from the same problem and state.  Classic values carry float64
 limbs; scaled values (limbs, exp) carry float32 limbs and int32 exponents,
-masks then float32.  The wide representation (`MPW`, a tuple of words) is
-refused.
+masks then float32; wide values (`MPW`, a tuple of scaled words) carry
+across word by word.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch
 
 from .models.sdp import Bucket, BucketShape, DeviceSDP, RealSize
 from .ops.mpfloat import MP
+from .ops.mpwide import MPW
 from .solver.state import BucketState, SolverState
 
 
@@ -28,8 +29,7 @@ def _t(x, device) -> torch.Tensor:
 
 def _mp(x, device) -> MP:
     if hasattr(x, "words"):
-        raise TypeError("wide (MPW) values do not carry across: the wide "
-                        "representation is not ported")
+        return MPW(_mp(w, device) for w in x.words)
     if getattr(x, "exp", None) is not None:
         return MP(torch.tensor(np.asarray(x.limbs, dtype=np.float32), device=device),
                   torch.tensor(np.asarray(x.exp, dtype=np.int32), device=device))

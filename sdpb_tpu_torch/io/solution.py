@@ -2,8 +2,8 @@
 format of sdpb_tpu/io/solution.py (and of the reference's save_solution).
 
 Values are written from classic float64 limbs (mpfloat.host_f64_limbs:
-classic limbs re-distilled to K + 1, scaled parts converted exactly to
-ceil(24K/53) + 1) through the port's copies of limbs_to_str and
+classic limbs re-distilled to K + 1, scaled and wide parts converted
+exactly to ceil(24K/53) + 1, K the total of the words' limbs) through the port's copies of limbs_to_str and
 write_text_matrix, so both packages print the same digits for the same
 values.
 """

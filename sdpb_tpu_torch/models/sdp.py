@@ -1,6 +1,7 @@
 """Device-side SDP problem: shape-bucketed, batched blocks (port of
-sdpb_tpu/models/sdp.py, one device), staged as classic float64 limbs or in
-the scaled representation (float32 limbs and int32 exponents).
+sdpb_tpu/models/sdp.py, one device), staged as classic float64 limbs, in
+the scaled representation (float32 limbs and int32 exponents) or, beyond 9
+scaled limbs, in the wide one (ops/mpwide.py: two scaled words).
 
 Blocks with equal dim and num_points in the same QUANT band share a
 bucket; each is zero-padded to the bucket's (num_points, h_even, h_odd)
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from ..io.sdp_zip import SDPData
-from ..ops import mpfloat as mp
+from ..ops import mpfloat as mp, mpwide
 from ..ops.mpfloat import MP
 
 QUANT = 8
@@ -117,7 +118,8 @@ def build_device_sdp(sdp: SDPData, device, scaled_limbs: int = 0) -> DeviceSDP:
     float64 MP tensors; scaled_limbs = K32 > 0 converts them exactly into
     the scaled representation with K32 float32 limbs (the host then needs
     at least ceil(24 K32 / 53) + 1 limbs), as sdpb_tpu's
-    build_device_sdp(..., scaled_limbs=K32)."""
+    build_device_sdp(..., scaled_limbs=K32); K32 > 9 stages wide values
+    (mpwide.f64_limbs_to_wide_parts, word by word)."""
     device = torch.device(device)
     if np.asarray(sdp.b).dtype != np.float64:
         raise TypeError("the port stages float64 host limbs")
@@ -131,6 +133,9 @@ def build_device_sdp(sdp: SDPData, device, scaled_limbs: int = 0) -> DeviceSDP:
     mask_dtype = mp.SCALED_DTYPE if scaled_limbs else torch.float64
 
     def stage(arr: np.ndarray) -> MP:
+        if scaled_limbs > mp.MAX_SCALED_K:
+            return mpwide.wide_parts_to_mp(
+                mpwide.f64_limbs_to_wide_parts(arr, scaled_limbs), device)
         if scaled_limbs:
             return mp.from_parts(*mp.f64_limbs_to_scaled_parts(arr, scaled_limbs),
                                  device)

@@ -1,17 +1,20 @@
 """The port's hand-written CUDA kernels, their bindings, and beside each its
 plain PyTorch version.
 
-Three kernels carry the numerics of the solve (sdpb_tpu/ops/linalg.py
-sends every matmul, Cholesky and triangular solve to them), each built
-for both MP representations:
+Four kernels carry the numerics of the solve (sdpb_tpu/ops/linalg.py
+sends every matmul, Cholesky and triangular solve to them):
 
   * `mp_matmul`            csrc/mp_matmul.cu    <- pallas_kernels.py::_matmul_kernel
   * `mp_cholesky`          csrc/mp_cholesky.cu  <- pallas_kernels.py::_cholesky_kernel
   * `mp_solve_triangular`  csrc/mp_trsm.cu      <- pallas_kernels.py::_trsm_kernel
+  * `mp_matmul_wide`       csrc/mp_wide_matmul.cu <- pallas_kernels.py::_matmul_wide_kernel
 
-The classic build (float64 limbs, csrc/mp.cuh) replaces the `scaled=False`
-branch of each Pallas kernel, the scaled build (float32 limbs and an int32
-exponent per element, csrc/mp_scaled.cuh) its `scaled=True` branch.
+The first three are built for both MP representations: the classic build
+(float64 limbs, csrc/mp.cuh) replaces the `scaled=False` branch of each
+Pallas kernel, the scaled build (float32 limbs and an int32 exponent per
+element, csrc/mp_scaled.cuh) its `scaled=True` branch.  The wide GEMM
+takes two-word MPW operands (ops/mpwide.py, G = 2 words of Kg limbs;
+csrc/mp_wide.cuh); the factorizations never see a wide value.
 
 Dispatch is by the device of the operands and nothing else: CUDA tensors
 launch the kernel of their representation (a shape, limb count or dtype
@@ -20,14 +23,17 @@ is no fallback.  Each wrapper counts its launches in `LAUNCHES`, one
 counter per (kernel, representation).
 
 The plain versions perform the kernels' exact operation order with the
-port's MP ops (`mpfloat.kmul`, the mplist term order), so on one device a
-kernel and its plain version agree limb for limb.
+port's MP ops (`mpfloat.kmul`, the mplist term order; for the wide GEMM
+the compact ops of ops/mpwide_kernel.py), so on one device a kernel and
+its plain version agree limb for limb.
 
 Build: the CUDA sources are compiled with nvcc at first use, one shared
 library per limb count K and representation (-DMP_K=K, -DMP_SCALED=0|1),
 into `build/sdpb_tpu_torch/` of the checkout, named by a hash of the
 sources and flags; they are bound with ctypes (plain C entry points
-returning `cudaGetLastError()`, exponent pointers NULL for classic).
+returning `cudaGetLastError()`, exponent pointers NULL for classic).  The
+wide GEMM has one library per word size Kg (-DMP_WIDE=1 -DMP_SCALED=1
+-DMP_K=Kg), built in the same parallel pass.
 """
 from __future__ import annotations
 
@@ -45,11 +51,14 @@ import numpy as np
 import torch
 
 from . import mpfloat as mp
+from . import mpwide_kernel as wk
 from .mpfloat import MP
+from .mpwide import MPW
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sdpb_tpu_torch"
 SOURCES = ("mp_matmul.cu", "mp_cholesky.cu", "mp_trsm.cu")
+WIDE_SOURCES = ("mp_wide_matmul.cu",)
 # no contraction (a fused TwoProd or TwoSum loses its error term), and
 # IEEE subnormals, division and square root, as the plain versions have
 # them on the CPU
@@ -58,10 +67,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 K_RANGE = range(2, 10)
 REPRESENTATIONS = (False, True)     # classic, scaled
+WIDE = "wide"                       # the representation key of the wide libraries
+WIDE_KG = range(3, 10)              # word sizes of the wide GEMM (Kg = 3 for tests)
 CHUNK = 8   # contraction chunk of the matmul (pallas_kernels.py:101)
 
 KERNEL_NAMES = ("mp_matmul", "mp_cholesky", "mp_solve_triangular")
 LAUNCHES = {name + suffix: 0 for suffix in ("", "_scaled") for name in KERNEL_NAMES}
+LAUNCHES["mp_matmul_wide"] = 0
 _LIBS = {}
 
 
@@ -95,16 +107,30 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def library_path(K: int, scaled: bool = False) -> Path:
-    return BUILD_DIR / f"libmpk_{_source_hash()}_k{K}{'s' if scaled else 'c'}.so"
+def _tag(rep) -> str:
+    return "w" if rep == WIDE else ("s" if rep else "c")
 
 
-def build(Ks=K_RANGE, representations=REPRESENTATIONS) -> list:
-    """Compile the libraries for the (K, scaled) pairs that are missing,
-    every (source, K, representation) object in parallel; returns the
-    pairs built."""
+def library_path(K: int, scaled=False) -> Path:
+    """The library of limb count K in a representation: False (classic),
+    True (scaled) or WIDE (K = Kg, the wide GEMM)."""
+    return BUILD_DIR / f"libmpk_{_source_hash()}_k{K}{_tag(scaled)}.so"
+
+
+def _defines(K: int, rep) -> list:
+    if rep == WIDE:
+        return [f"-DMP_K={K}", "-DMP_SCALED=1", "-DMP_WIDE=1"]
+    return [f"-DMP_K={K}", f"-DMP_SCALED={int(rep)}"]
+
+
+def build(Ks=K_RANGE, representations=REPRESENTATIONS, wide_Ks=WIDE_KG) -> list:
+    """Compile the libraries that are missing: (K, classic/scaled) for K in
+    Ks, (Kg, WIDE) for Kg in wide_Ks; the (source, K, representation)
+    objects in parallel, one nvcc each, as many at a time as there are
+    cores.  Returns the (K, representation) pairs built."""
     todo = [(K, s) for s in representations for K in Ks
             if not library_path(K, s).exists()]
+    todo += [(K, WIDE) for K in wide_Ks if not library_path(K, WIDE).exists()]
     if not todo:
         return todo
     nvcc = _nvcc()
@@ -112,19 +138,21 @@ def build(Ks=K_RANGE, representations=REPRESENTATIONS) -> list:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         def obj(K, s, src):
-            return str(Path(tmp) / f"{src}.k{K}{'s' if s else 'c'}.o")
+            return str(Path(tmp) / f"{src}.k{K}{_tag(s)}.o")
 
-        compiles = [[nvcc, *NVCC_FLAGS, f"-DMP_K={K}", f"-DMP_SCALED={int(s)}",
-                     "-c", str(CSRC / src), "-o", obj(K, s, src)]
-                    for K, s in todo for src in SOURCES]
+        def sources(s):
+            return WIDE_SOURCES if s == WIDE else SOURCES
+
+        compiles = [[nvcc, *NVCC_FLAGS, *_defines(K, s), "-c", str(CSRC / src),
+                     "-o", obj(K, s, src)] for K, s in todo for src in sources(s)]
         with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
             list(pool.map(_run, compiles))
         for K, s in todo:
-            so = Path(tmp) / f"k{K}{'s' if s else 'c'}.so"
-            _run([nvcc, "-shared", "-o", str(so), *(obj(K, s, src) for src in SOURCES)])
+            so = Path(tmp) / f"k{K}{_tag(s)}.so"
+            _run([nvcc, "-shared", "-o", str(so), *(obj(K, s, src) for src in sources(s))])
             os.replace(so, library_path(K, s))
-    print(f"built CUDA kernels for (K, scaled) {todo} in {time.time() - t0:.1f} s "
-          f"({BUILD_DIR})", flush=True)
+    print(f"built CUDA kernels for (K, representation) {todo} in "
+          f"{time.time() - t0:.1f} s ({BUILD_DIR})", flush=True)
     return todo
 
 
@@ -135,20 +163,29 @@ def _run(cmd) -> None:
                            f"{proc.stdout}{proc.stderr}")
 
 
-def _library(K: int, scaled: bool) -> ctypes.CDLL:
-    if K not in K_RANGE:
-        raise ValueError(f"the CUDA kernels take 2 <= K <= 9 limbs, got K={K}")
+def _library(K: int, scaled) -> ctypes.CDLL:
+    wide = scaled == WIDE
+    if K not in (WIDE_KG if wide else K_RANGE):
+        raise ValueError(f"the CUDA kernels take 2 <= K <= 9 limbs (the wide GEMM "
+                         f"3 <= Kg <= 9), got K={K}")
     lib = _LIBS.get((K, scaled))
     if lib is None:
-        build([K], [scaled])
+        if wide:
+            build([], [], [K])
+        else:
+            build([K], [scaled], [])
         lib = ctypes.CDLL(str(library_path(K, scaled)))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.mp_matmul_launch.argtypes = [vp] * 6 + [ci] * 4 + [vp]
-        lib.mp_cholesky_launch.argtypes = [vp] * 6 + [ci] * 2 + [vp]
-        lib.mp_trsm_launch.argtypes = [vp] * 10 + [ci] * 4 + [vp]
-        for f in (lib.mp_matmul_launch, lib.mp_cholesky_launch,
-                  lib.mp_trsm_launch):
-            f.restype = ci
+        if wide:
+            lib.mp_wide_matmul_launch.argtypes = [vp] * 12 + [ci] * 4 + [vp]
+            lib.mp_wide_matmul_launch.restype = ci
+        else:
+            lib.mp_matmul_launch.argtypes = [vp] * 6 + [ci] * 4 + [vp]
+            lib.mp_cholesky_launch.argtypes = [vp] * 6 + [ci] * 2 + [vp]
+            lib.mp_trsm_launch.argtypes = [vp] * 10 + [ci] * 4 + [vp]
+            for f in (lib.mp_matmul_launch, lib.mp_cholesky_launch,
+                      lib.mp_trsm_launch):
+                f.restype = ci
         _LIBS[(K, scaled)] = lib
     return lib
 
@@ -282,6 +319,62 @@ def mp_matmul(a: MP, b: MP) -> MP:
                 (*_parts(a4), *_parts(b4), *_parts(out)), (B, M, Kd, N))
         LAUNCHES[counter("mp_matmul", a4.scaled)] += 1
     return unflatten(out)
+
+
+# ---------------------------------------------------------------------------
+# Wide (two-word) MP GEMM
+
+
+def _canon_wide_pair(a: MPW, b: MPW):
+    """_canon_batched_pair word by word (pallas_kernels.py:322-333)."""
+    ca, cb, unf = [], [], []
+    for wa, wb in zip(a.words, b.words):
+        a4, b4, u = _canon_batched_pair(wa, wb)
+        ca.append(a4)
+        cb.append(b4)
+        unf.append(u)
+    return MPW(ca), MPW(cb), lambda r: MPW(u(w) for u, w in zip(unf, r.words))
+
+
+def mp_matmul_wide_plain(a: MPW, b: MPW) -> MPW:
+    """Plain version of the wide GEMM on two-word operands [Kg,B,M,Kd] x
+    [Kg,B,Kd,N]: the contraction term by term through the cheap-carry
+    accumulate wfma_acc_c from a zero accumulator, then wnormalize_c (the
+    Pallas kernel's chunk = 1 order)."""
+    Kg = a.Kg
+    _, B, M, Kd = a.words[0].limbs.shape
+    N = b.words[0].limbs.shape[-1]
+    acc = wk.wzeros((B, M, N), Kg, a.device)
+    for t in range(Kd):
+        wa = tuple((w.limbs[..., t:t + 1], w.exp[..., t:t + 1]) for w in a.words)
+        wb = tuple((w.limbs[:, :, t:t + 1, :], w.exp[:, t:t + 1, :]) for w in b.words)
+        acc = wk.wfma_acc_c(acc, wa, wb, Kg)
+    return MPW(MP(*w) for w in wk.wnormalize_c(acc, Kg))
+
+
+def mp_matmul_wide(a: MPW, b: MPW) -> MPW:
+    """Batched two-word MP matmul a [..., M, Kd] @ b [..., Kd, N] (broadcast
+    batch); CUDA operands launch the wide GEMM kernel of their word size,
+    CPU operands run the plain version."""
+    if not (isinstance(a, MPW) and isinstance(b, MPW)):
+        raise TypeError(f"mp_matmul_wide takes two MPW, got {type(a).__name__} "
+                        f"and {type(b).__name__}")
+    if a.G != 2 or b.G != 2:
+        raise ValueError(f"the wide GEMM takes two-word operands (G = 2), got G={a.G} "
+                         f"and G={b.G}")
+    if a.Kg != b.Kg:
+        raise ValueError(f"word sizes differ: {a.Kg} vs {b.Kg}")
+    a4, b4, unflatten = _canon_wide_pair(a, b)
+    if _on_cpu(*a4.words, *b4.words):
+        return unflatten(mp_matmul_wide_plain(a4, b4))
+    Kg, B, M, Kd = a4.words[0].limbs.shape
+    N = b4.words[0].limbs.shape[-1]
+    out = [_empty((B, M, N), Kg, True, a4.device) for _ in range(2)]
+    if out[0].limbs.numel():
+        ptrs = [p for w in (*a4.words, *b4.words, *out) for p in _parts(w)]
+        _launch("mp_wide_matmul_launch", Kg, WIDE, a4.device, ptrs, (B, M, Kd, N))
+        LAUNCHES["mp_matmul_wide"] += 1
+    return unflatten(MPW(out))
 
 
 # ---------------------------------------------------------------------------

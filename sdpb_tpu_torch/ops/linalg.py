@@ -2,7 +2,9 @@
 
 Every product, Cholesky factorization and triangular solve goes to the
 wrappers of ops/kernels.py: the CUDA kernel for CUDA tensors, its plain
-PyTorch version for CPU tensors.  Shapes are batched, [..., n, m].
+PyTorch version for CPU tensors.  Shapes are batched, [..., n, m].  Wide
+(MPW) products go to the wide GEMM; factorizations never take a wide
+value (PosdefSolver factors word 0 and refines with wide residuals).
 """
 from __future__ import annotations
 
@@ -10,11 +12,13 @@ import torch
 
 from . import kernels
 from . import mpfloat as mp
-from .mpfloat import MP
+from .mpfloat import MP, _is_wide
 
 
 def matmul(a: MP, b: MP) -> MP:
     """a [..., M, Kd] @ b [..., Kd, N] at full MP precision."""
+    if _is_wide(a) or _is_wide(b):
+        return kernels.mp_matmul_wide(a, b)
     return kernels.mp_matmul(a, b)
 
 
@@ -77,6 +81,8 @@ class PosdefSolver:
     """Cholesky factor of an SPD MP matrix at `factor_limbs` limbs, with
     full-precision solves against the original matrix by iterative
     refinement (residuals at full K, corrections at the factor precision).
+    A wide A is factored as its word 0 rounded to factor_limbs <= 9 (by the
+    scaled Cholesky kernel), and its residuals are wide products.
     The JAX package's optional Jacobi equilibration (off in the solver) is
     not ported; a scaled operand has no use for it (its exponents carry the
     range), and asking for it raises."""
@@ -114,7 +120,8 @@ def min_eigenvalue_estimate(A: MP) -> torch.Tensor:
     where the JAX package reads float32, its base type on the TPU: the card
     has native float64, and so a scaled run sees the same float64 matrices
     as a classic one and takes the same steps, where float32 would move
-    them at 1e-7 (the step lengths need only a few digits either way)."""
+    them at 1e-7 (the step lengths need only a few digits either way).  A
+    wide A is read the same way, rounded once from both words."""
     a = mp.nearest_double(A) if A.scaled else mp.to_float_array(A)
     scale = torch.amax(torch.abs(a), dim=(-2, -1), keepdim=True)
     safe = torch.where(scale == 0, torch.ones_like(scale), scale)

@@ -12,8 +12,12 @@ for limb.  Two representations share the container:
     2^exp * sum(limbs), float32 limbs normalized so that limbs[0] has
     binary exponent CENTER(K) = max(0, 24K - 100).  The ladder then stays
     inside float32's normal range for K <= 9 (216 bits) while `exp` gives
-    unlimited range.  K > 9 is the JAX package's wide representation,
-    which is not ported.
+    unlimited range.  Scaled K > 9 is the wide representation
+    (ops/mpwide.py: a sum of G scaled words, each with its own exponent).
+    Every public function here sends an `MPW` operand there, and `zeros`,
+    `from_double` and `round_to` send a scaled K > MAX_SCALED_K there;
+    `mul_full` and `add_full` below are the exact two-word product and sum
+    the wide words are built on.
 
 Every function here is the same sequence of IEEE operations as its JAX
 counterpart on the CPU where the JAX package runs its unrolled renorm
@@ -127,6 +131,23 @@ class MP:
                   None if self.exp is None else self.exp.transpose(-1, -2))
 
 
+def _is_wide(x) -> bool:
+    """True for an ops/mpwide.py MPW (checked by name: mpwide imports this
+    module)."""
+    return type(x).__name__ == "MPW"
+
+
+def _wide():
+    from . import mpwide
+
+    return mpwide
+
+
+def _wide_k(K: int, scaled: bool) -> bool:
+    """A scaled K beyond one word's limbs is a wide value."""
+    return scaled and K > MAX_SCALED_K
+
+
 def _check_modes(a: MP, b: MP) -> None:
     if a.scaled != b.scaled:
         raise TypeError("cannot mix scaled and classic MP operands")
@@ -134,9 +155,9 @@ def _check_modes(a: MP, b: MP) -> None:
 
 def _check_scaled_k(K: int) -> None:
     if K > MAX_SCALED_K:
-        raise ValueError(f"scaled MP supports K <= {MAX_SCALED_K} float32 limbs "
-                         f"(216 bits), got K={K}; the wide representation "
-                         f"beyond it is not ported")
+        raise ValueError(f"a scaled MP word holds K <= {MAX_SCALED_K} float32 limbs "
+                         f"(216 bits), got K={K}; wider values are MPW "
+                         f"(ops/mpwide.py)")
 
 
 # ---------------------------------------------------------------------------
@@ -256,6 +277,8 @@ def host_f64_limbs(a: MP, K64: int = 0) -> np.ndarray:
     limbs (default: enough for the full mantissa, K + 1 classic and
     ceil(24K/53) + 1 scaled), as sdpb_tpu's host_f64_limbs: the portable
     format of out.txt, y.txt and x_*.txt."""
+    if _is_wide(a):
+        return _wide().host_f64_limbs(a, K64)
     limbs = a.limbs.detach().cpu().numpy().astype(np.float64)
     if a.scaled:
         return scaled_parts_to_f64_limbs(limbs, a.exp.detach().cpu().numpy(),
@@ -271,6 +294,8 @@ def host_f64_limbs(a: MP, K64: int = 0) -> np.ndarray:
 
 
 def zeros(shape, K: int, device, scaled: bool = False) -> MP:
+    if _wide_k(K, scaled):
+        return _wide().zeros(shape, K, device)
     shape = tuple(shape)
     if not scaled:
         return MP(torch.zeros((K,) + shape, dtype=DTYPE, device=device))
@@ -313,8 +338,10 @@ def from_double(x, K: int, device=None, scaled: bool = False) -> MP:
     peeled into limbs on the host; a classic tensor becomes the top limb
     over K-1 zero limbs; a scaled one is converted on its device.  Host
     input needs an explicit `device`."""
-    if isinstance(x, MP):
+    if isinstance(x, MP) or _is_wide(x):
         raise TypeError("already MP")
+    if _wide_k(K, scaled):
+        return _wide().from_double(x, K, device)
     if scaled:
         _check_scaled_k(K)
     if isinstance(x, torch.Tensor):
@@ -350,6 +377,8 @@ def _pow2d(e: torch.Tensor) -> torch.Tensor:
 def to_double(a: MP) -> torch.Tensor:
     """Float64 approximation: the limbs summed top-down (logging only);
     scaled values beyond float64's exponent range saturate."""
+    if _is_wide(a):
+        return _wide().to_double(a)
     acc = a.limbs[0].to(torch.float64)
     for i in range(1, a.K):
         acc = acc + a.limbs[i].to(torch.float64)
@@ -366,6 +395,8 @@ def nearest_double(a: MP) -> torch.Tensor:
     float64 limbs renormalized to two, times 2^exp.  Summing the limbs
     (to_double) rounds twice now and then, a last-bit difference that would
     set a scaled run's step lengths apart from a classic run's."""
+    if _is_wide(a):
+        return _wide().nearest_double(a)
     if not a.scaled:
         return a.limbs[0]
     top = renorm([x.to(torch.float64) for x in a.limbs], 2).limbs[0]
@@ -378,6 +409,8 @@ def to_float_array(a: MP) -> torch.Tensor:
     """Top limb plus the next one in the limb dtype (seeds, thresholds,
     error norms).  Scaled mode folds the exponent in with saturation:
     overflow gives +-float32 max, underflow 0 through subnormals."""
+    if _is_wide(a):
+        return _wide().to_float_array(a)
     m = a.limbs[0] if a.K == 1 else a.limbs[0] + a.limbs[1]
     if not a.scaled:
         return m
@@ -393,7 +426,12 @@ def to_float_array(a: MP) -> torch.Tensor:
 
 def round_to(a: MP, K: int) -> MP:
     """Keep the leading K limbs (zero-extend when K > a.K); scaled mode
-    re-centers the mantissa on the new K's ladder."""
+    re-centers the mantissa on the new K's ladder.  A wide value rounds to
+    its word 0 (K <= MAX_SCALED_K); a scaled K > MAX_SCALED_K widens."""
+    if _is_wide(a):
+        return _wide().round_to(a, K)
+    if _wide_k(K, a.scaled):
+        return _wide().widen(a, K)
     if a.scaled:
         _check_scaled_k(K)
     if K == a.K:
@@ -413,6 +451,8 @@ def round_to(a: MP, K: int) -> MP:
 
 
 def neg(a: MP) -> MP:
+    if _is_wide(a):
+        return _wide().neg(a)
     return MP(-a.limbs, a.exp)
 
 
@@ -425,6 +465,8 @@ def _as_tensor(m, like: MP) -> torch.Tensor:
 def mask_value(a: MP, m) -> MP:
     """Zero the elements where m (broadcastable to a.shape) is 0; scaled
     mode floors their exponents so they never win an alignment."""
+    if _is_wide(a):
+        return _wide().mask_value(a, m)
     mb = torch.broadcast_to(_as_tensor(m, a), a.shape)
     limbs = a.limbs * mb
     if not a.scaled:
@@ -437,6 +479,8 @@ def mask_value(a: MP, m) -> MP:
 
 def take(a: MP, idx, axis: int) -> MP:
     """jnp.take on a value axis: an int drops the axis, a sequence keeps it."""
+    if _is_wide(a):
+        return _wide().take(a, idx, axis)
     axis = axis % a.ndim
     if isinstance(idx, int):
         return MP(a.limbs.select(axis + 1, idx),
@@ -447,6 +491,8 @@ def take(a: MP, idx, axis: int) -> MP:
 
 
 def stack(ms: List[MP], axis: int) -> MP:
+    if _is_wide(ms[0]):
+        return _wide().stack(ms, axis)
     axis = axis % (ms[0].ndim + 1)
     limbs = torch.stack([m.limbs for m in ms], dim=axis + 1)
     if not ms[0].scaled:
@@ -456,6 +502,8 @@ def stack(ms: List[MP], axis: int) -> MP:
 
 
 def concatenate(ms: List[MP], axis: int) -> MP:
+    if _is_wide(ms[0]):
+        return _wide().concatenate(ms, axis)
     axis = axis % ms[0].ndim
     limbs = torch.cat([m.limbs for m in ms], dim=axis + 1)
     if not ms[0].scaled:
@@ -471,6 +519,8 @@ def _bcast(limbs: torch.Tensor, K: int, shape) -> torch.Tensor:
 
 
 def broadcast_to(a: MP, shape) -> MP:
+    if _is_wide(a):
+        return _wide().broadcast_to(a, shape)
     shape = tuple(shape)
     return MP(_bcast(a.limbs, a.K, shape),
               None if a.exp is None else torch.broadcast_to(a.exp, shape))
@@ -478,6 +528,8 @@ def broadcast_to(a: MP, shape) -> MP:
 
 def diagonal(a: MP) -> MP:
     """Diagonal over the last two value axes."""
+    if _is_wide(a):
+        return _wide().diagonal(a)
     return MP(torch.diagonal(a.limbs, dim1=-2, dim2=-1),
               None if a.exp is None else torch.diagonal(a.exp, dim1=-2, dim2=-1))
 
@@ -485,6 +537,8 @@ def diagonal(a: MP) -> MP:
 def set_block(a: MP, idx: tuple, b: MP) -> None:
     """a[idx] = b IN PLACE (limbs and exponents), where the JAX package's
     set_block returns an updated copy."""
+    if _is_wide(a):
+        return _wide().set_block(a, idx, b)
     a.limbs[(slice(None),) + idx] = b.limbs
     if a.scaled:
         a.exp[idx] = b.exp
@@ -492,6 +546,8 @@ def set_block(a: MP, idx: tuple, b: MP) -> None:
 
 def scalar_eye(s: MP, n: int) -> MP:
     """s * I as an [..., n, n] MP from a (batched) scalar s."""
+    if _is_wide(s):
+        return _wide().scalar_eye(s, n)
     eye = torch.eye(n, dtype=s.dtype, device=s.device)
     limbs = s.limbs[..., None, None] * eye
     if not s.scaled:
@@ -503,6 +559,8 @@ def scalar_eye(s: MP, n: int) -> MP:
 
 
 def expand_dims(a: MP, axis: int) -> MP:
+    if _is_wide(a):
+        return _wide().expand_dims(a, axis)
     if axis < 0:
         axis = a.ndim + 1 + axis
     return MP(a.limbs.unsqueeze(axis + 1),
@@ -512,6 +570,8 @@ def expand_dims(a: MP, axis: int) -> MP:
 def pad_dim(a: MP, axis: int, count: int) -> MP:
     """Zero-pad `count` elements at the end of value axis `axis` (scaled
     zeros carry EXP_ZERO)."""
+    if _is_wide(a):
+        return _wide().pad_dim(a, axis, count)
     axis = axis % a.ndim
     shape = list(a.limbs.shape)
     shape[axis + 1] = count
@@ -528,27 +588,52 @@ def pad_dim(a: MP, axis: int, count: int) -> MP:
 # Renormalization (distillation by repeated extraction, mpfloat.py:774-878)
 
 
+def sweeps(xs: Sequence[torch.Tensor], K: int, chain: bool) -> List[torch.Tensor]:
+    """K bottom-up carry-chain extraction sweeps over the rows: sweep k
+    runs i = m-2 .. k with (carry, xs[i+1]) = two_sum(xs[i], carry) from
+    carry = xs[m-1], then xs[k] = carry.  With `chain` the residue rows
+    K.. are then chain-summed into row K (the renorm tail), otherwise they
+    are left as the exact residual.
+
+    The sweeps run as a wavefront, with the same operations on the same
+    values: sweep k takes its step j at time T = j + 2k, by when sweep k-1
+    has finalized the rows it reads, so each time step is one batched
+    TwoSum over the active sweeps (rows at stride 2), about m + K torch
+    ops in all where one sweep after the other takes about 6 K m.  The
+    chain tail is one more lane whose sums are the TwoSums' sums (IEEE
+    addition commutes) and whose errors are dropped."""
+    m = len(xs)
+    L = min(K, m - 1)
+    lanes = L + (1 if chain and m - 1 > K else 0)
+    if lanes == 0:
+        return list(xs)
+    X = torch.stack(torch.broadcast_tensors(*xs))
+    C = torch.empty((lanes,) + tuple(X.shape[1:]), dtype=X.dtype, device=X.device)
+    for T in range(m + lanes - 2):
+        lo, hi = max(0, T - (m - 2)), min(lanes - 1, T // 2)
+        if T % 2 == 0 and T // 2 < lanes:
+            C[T // 2] = X[m - 1]                 # sweep T/2 starts
+        r = m - 2 - T + 2 * lo                   # the row sweep `lo` reads
+        s, e = two_sum(X[r:r + 2 * (hi - lo) + 1:2], C[lo:hi + 1])
+        C[lo:hi + 1] = s
+        hw = min(hi, L - 1)
+        if hw >= lo:
+            X[r + 1:r + 2 * (hw - lo) + 2:2] = e[:hw - lo + 1]
+        if T >= m - 2:                           # sweep T-(m-2) ends
+            X[T - (m - 2)] = C[T - (m - 2)]
+    return list(X.unbind(0))
+
+
 def renorm(xs: Sequence[torch.Tensor], K: int, exp: torch.Tensor = None) -> MP:
     """Distill a list of limb tensors into a K-limb MP.  K bottom-up TwoSum
-    sweeps extract the limbs, the residue is chain-summed into limb K, and
-    a top-down then bottom-up quick-two-sum pass compacts the result.  With
-    `exp` the list is a mantissa at that common exponent, and the result is
-    re-centered on the CENTER(K) ladder."""
+    sweeps extract the limbs, the residue is chain-summed into limb K
+    (both by `sweeps`), and a top-down then bottom-up quick-two-sum pass
+    compacts the result.  With `exp` the list is a mantissa at that common
+    exponent, and the result is re-centered on the CENTER(K) ladder."""
     xs = list(torch.broadcast_tensors(*xs))
     if len(xs) < K + 2:
         xs += [torch.zeros_like(xs[0])] * (K + 2 - len(xs))
-    m = len(xs)
-    for k in range(K + 1):
-        if k == m - 1:
-            break
-        if k == K:
-            s = xs[m - 1]
-            for i in range(m - 2, k - 1, -1):
-                s = s + xs[i]
-            xs[k] = s
-            break
-        for i in range(m - 2, k - 1, -1):
-            xs[i], xs[i + 1] = two_sum(xs[i], xs[i + 1])
+    xs = sweeps(xs, K, chain=True)
     for i in range(K):
         xs[i], xs[i + 1] = quick_two_sum(xs[i], xs[i + 1])
     for i in range(K - 1, 0, -1):
@@ -566,6 +651,8 @@ def renorm(xs: Sequence[torch.Tensor], K: int, exp: torch.Tensor = None) -> MP:
 def add(a: MP, b: MP) -> MP:
     """Limbs interleaved a0 b0 a1 b1 ... then renorm; scaled operands are
     first aligned on the larger exponent."""
+    if _is_wide(a) or _is_wide(b):
+        return _wide().add(a, b)
     assert a.K == b.K, (a.K, b.K)
     _check_modes(a, b)
     K = a.K
@@ -657,6 +744,8 @@ def _mul_terms(a: MP, b: MP, sequential: bool):
 
 def mul(a: MP, b: MP) -> MP:
     """Truncated expansion product in the JAX `mpfloat.mul` term order."""
+    if _is_wide(a) or _is_wide(b):
+        return _wide().mul(a, b)
     assert a.K == b.K, (a.K, b.K)
     _check_modes(a, b)
     xs, exp = _mul_terms(a, b, sequential=not a.scaled and a.K < 3)
@@ -671,9 +760,144 @@ def kmul(a: MP, b: MP) -> MP:
     return renorm(xs, a.K, exp)
 
 
+def mul_term_plan(K: int):
+    """The vectorized plan (_mul_term_plan, mpfloat.py:929-957): row
+    indices into the stacked [2K^2] (products, errors) terms by diagonal,
+    and each row's product diagonal (which sets its placement scale)."""
+    idx, diag = [], []
+    for n in range(K + 1):
+        if n < K:
+            idx += [i * K + n - i for i in range(n + 1)]
+            diag += [n] * (n + 1)
+        if 1 <= n <= K - 1:
+            idx += [K * K + i * K + n - 1 - i for i in range(n)]
+            diag += [n - 1] * n
+        if n == K:
+            idx += [i * K + K - i for i in range(1, K)]
+            diag += [n] * (K - 1)
+    return np.asarray(idx, np.int32), np.asarray(diag, np.int32)
+
+
+def mul_term_plan_full(K: int) -> np.ndarray:
+    """Order of the FULL limb product (_mul_term_plan_full,
+    mpfloat.py:1085-1097): every product and then its error, by product
+    diagonal; index % K^2 recovers the limb pair."""
+    idx = []
+    for n in range(2 * K - 1):
+        for i in range(max(0, n - K + 1), min(K, n + 1)):
+            idx += [i * K + n - i, K * K + i * K + n - i]
+    return np.asarray(idx, np.int32)
+
+
+def _compact_hi(xs: List[torch.Tensor], K: int) -> torch.Tensor:
+    """TwoSum compaction confined to the K extracted limbs, forward then
+    back (exact rearrangement)."""
+    his = list(xs[:K])
+    for i in range(K - 1):
+        his[i], his[i + 1] = two_sum(his[i], his[i + 1])
+    for i in range(K - 1, 0, -1):
+        his[i - 1], his[i] = two_sum(his[i - 1], his[i])
+    return torch.stack(his, 0)
+
+
+def _lift_residual(rows: List[torch.Tensor], K: int) -> List[torch.Tensor]:
+    """The exact residual re-laddered 24K binary digits up onto the lo
+    word's exponent, in separate multiplies of at most 2^108 (one factor
+    2^(24K) would overflow float32)."""
+    r = torch.stack(rows)
+    sc = 24 * K
+    while sc > 0:
+        stp = min(sc, 108)
+        r = r * 2.0 ** stp
+        sc -= stp
+    return list(r)
+
+
+def mul_full(a: MP, b: MP):
+    """The scaled product as TWO scaled words (hi, lo), hi + lo == a * b
+    exactly (mpfloat.py:1100-1183): every diagonal of the limb product is
+    kept, each limb lifted to about 2^MUL_UNIFORM_EXP by its own power of
+    two, each term routed by content onto the hi ladder (when its whole
+    mantissa stays a float32 normal there) or 24K binary digits down onto
+    the lo ladder; the hi word is extracted error-free and its exact
+    residual joins the lo word."""
+    assert a.scaled and b.scaled and a.K == b.K, (a.K, b.K)
+    K = a.K
+    U = MUL_UNIFORM_EXP
+    C = center_for(K)
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    al = _bcast(a.limbs, K, shape)
+    bl = _bcast(b.limbs, K, shape)
+    ea, eb = _exp_bits(al), _exp_bits(bl)
+    lift_a = torch.where(ea == 0, torch.zeros_like(ea), U + 127 - ea)
+    lift_b = torch.where(eb == 0, torch.zeros_like(eb), U + 127 - eb)
+    # lifts lie in [-112, 141]: two staged factors (the third is 2^0)
+    As, Bs = _scale_pow2(al, lift_a), _scale_pow2(bl, lift_b)
+    ah, alo = split(As)
+    bh, blo = split(Bs)
+    P = As[:, None] * Bs[None, :]
+    E = ((ah[:, None] * bh[None, :] - P) + ah[:, None] * blo[None, :]
+         + alo[:, None] * bh[None, :]) + alo[:, None] * blo[None, :]
+    PE = torch.cat([P.reshape((K * K,) + shape), E.reshape((K * K,) + shape)], 0)
+    D = (-(lift_a[:, None] + lift_b[None, :]) - C).reshape((K * K,) + shape)
+    exp_hi = torch.broadcast_to(a.exp, shape) + torch.broadcast_to(b.exp, shape) + C
+    idx = torch.as_tensor(mul_term_plan_full(K), dtype=torch.long, device=al.device)
+    G = PE[idx]
+    Drow = D[idx % (K * K)]
+    keep_hi = (_exp_bits(G) + Drow) >= 24
+    zero = torch.zeros_like(G)
+    S_hi = _scale_pow2(torch.where(keep_hi, G, zero), Drow)
+    S_lo = _scale_pow2(torch.where(keep_hi, zero, G), Drow + 24 * K)
+    # the K extraction sweeps leave the EXACT residual in rows K..
+    # (_sweeps_exact_scan, mpfloat.py:1058-1082)
+    xs = sweeps(list(S_hi), K, chain=False)
+    hi = MP(*_normalize_scaled(_compact_hi(xs, K), exp_hi, K))
+    lo = renorm(_lift_residual(xs[K:], K) + list(S_lo), K, exp_hi - 24 * K)
+    return hi, lo
+
+
+def add_full(a: MP, b: MP):
+    """TwoSum of scaled words: hi + lo == a + b exactly, for leading
+    cancellation up to about 242 bits (mpfloat.py:1186-1256).  Limb rows
+    are routed by content: a row stays on the hi ladder when its whole
+    mantissa survives the shift to the common top as float32 normals,
+    deeper rows go straight to the lo ladder 24K binary digits down.  The
+    hi stack is extracted error-free and its exact residual joins the lo
+    stack."""
+    assert a.scaled and b.scaled and a.K == b.K, (a.K, b.K)
+    K = a.K
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    al = _bcast(a.limbs, K, shape)
+    bl = _bcast(b.limbs, K, shape)
+    ae = torch.broadcast_to(a.exp, shape)
+    be = torch.broadcast_to(b.exp, shape)
+    e_hi = torch.maximum(ae, be)
+
+    def route(limbs, we):
+        d = we - e_hi
+        keep_hi = (_exp_bits(limbs) + d) >= 24
+        zero = torch.zeros_like(limbs)
+        return (_scale_pow2(torch.where(keep_hi, limbs, zero), d),
+                _scale_pow2(torch.where(keep_hi, zero, limbs), d + 24 * K))
+
+    a_hi, a_lo = route(al, ae)
+    b_hi, b_lo = route(bl, be)
+    rows = []
+    for i in range(K):
+        rows += [a_hi[i], b_hi[i]]
+    xs = sweeps(rows, K, chain=False)
+    hi = MP(*_normalize_scaled(_compact_hi(xs, K), e_hi, K))
+    lo_rows = _lift_residual(xs[K:], K)
+    for i in range(K):
+        lo_rows += [a_lo[i], b_lo[i]]
+    return hi, renorm(lo_rows, K, e_hi - 24 * K)
+
+
 def mul_pow2(a: MP, p) -> MP:
     """Exact scaling by a power of two (scalar or per element); a scaled
     operand and a host power of two change only the exponent."""
+    if _is_wide(a):
+        return _wide().mul_pow2(a, p)
     if a.scaled and not isinstance(p, torch.Tensor):
         pf = float(p)
         e = int(np.log2(abs(pf)))
@@ -713,6 +937,8 @@ def _unit_mantissa(a: MP) -> torch.Tensor:
 
 def reciprocal(b: MP, kernel_order: bool = False) -> MP:
     """1/b by Newton: r <- r + r (1 - b r)."""
+    if _is_wide(b):
+        return _wide().reciprocal(b)
     m_ = kmul if kernel_order else mul
     one = from_double(1.0, b.K, b.device, scaled=b.scaled)
     if b.scaled:
@@ -745,6 +971,8 @@ def rsqrt(a: MP, kernel_order: bool = False) -> MP:
     """1/sqrt(a) by Newton: r <- r (3/2 - a r^2 / 2); a > 0.  Seeded with
     the correctly rounded 1/sqrt(m), never a device rsqrt; a scaled seed
     takes the mantissa times 2^(exp mod 2) and the exponent's half."""
+    if _is_wide(a):
+        return _wide().rsqrt(a)
     m_ = kmul if kernel_order else mul
     half = from_double(0.5, a.K, a.device, scaled=a.scaled)
     three_half = from_double(1.5, a.K, a.device, scaled=a.scaled)
@@ -764,6 +992,8 @@ def rsqrt(a: MP, kernel_order: bool = False) -> MP:
 def sqrt(a: MP) -> MP:
     """sqrt via the rsqrt Newton chain plus one refinement; zero gives
     zero, a negative input NaN."""
+    if _is_wide(a):
+        return _wide().sqrt(a)
     half = from_double(0.5, a.K, a.device, scaled=a.scaled)
     top = a.limbs[0]
     is_zero = top <= 0
@@ -792,6 +1022,8 @@ def sqrt(a: MP) -> MP:
 def sign_array(a: MP) -> torch.Tensor:
     """Elementwise sign: the sign of the first nonzero limb (the exponent
     never changes it)."""
+    if _is_wide(a):
+        return _wide().sign_array(a)
     s = torch.sign(a.limbs[a.K - 1])
     for i in range(a.K - 2, -1, -1):
         s = torch.where(a.limbs[i] != 0, torch.sign(a.limbs[i]), s)
@@ -803,6 +1035,8 @@ def lt(a: MP, b: MP) -> torch.Tensor:
 
 
 def where(cond, a: MP, b: MP) -> MP:
+    if _is_wide(a) or _is_wide(b):
+        return _wide().where(cond, a, b)
     _check_modes(a, b)
     if not isinstance(cond, torch.Tensor):
         cond = torch.as_tensor(np.asarray(cond, dtype=bool), device=a.device)
@@ -816,6 +1050,8 @@ def where(cond, a: MP, b: MP) -> MP:
 
 
 def abs_(a: MP) -> MP:
+    if _is_wide(a):
+        return _wide().abs_(a)
     s = sign_array(a)
     return MP(a.limbs * torch.where(s < 0, -1.0, 1.0).to(a.dtype), a.exp)
 
@@ -852,6 +1088,8 @@ def _sum_axis0(a: MP) -> MP:
 
 def max_abs(a: MP) -> torch.Tensor:
     """max |a| in the limb dtype (error norms)."""
+    if _is_wide(a):
+        return _wide().max_abs(a)
     m = torch.abs(to_float_array(a))
     return torch.max(m) if a.ndim else m
 

@@ -20,8 +20,10 @@ import numpy as np
 import torch
 
 from ..models.sdp import DeviceSDP
+from ..ops import mpfloat as mp
+from ..ops.mpwide import MPW
 from ..utils.strings import (limbs_to_mpf, scaled_limbs_to_mpf, str_to_limbs,
-                             str_to_scaled_limbs)
+                             str_to_scaled_limbs, wide_limbs_to_mpf)
 from ..utils.timers import Timers
 from .params import SolverParameters
 from .state import SolverState, initial_state
@@ -46,8 +48,8 @@ class TerminateReason(enum.Enum):
 
 class HostStats(NamedTuple):
     """IterationStats on the host: MP fields as float64 limb arrays [K]
-    (classic) or (float32 limbs [K], exponent) pairs (scaled), the rest as
-    Python numbers."""
+    (classic), (float32 limbs [K], exponent) pairs (scaled) or lists of such
+    pairs, one per word (wide); the rest as Python numbers."""
     primal_objective: np.ndarray
     dual_objective: np.ndarray
     duality_gap: np.ndarray
@@ -69,24 +71,28 @@ _MP_FIELDS = ("primal_objective", "dual_objective", "duality_gap", "mu")
 def to_host(stats: IterationStats) -> HostStats:
     """One device-to-host copy of every field (float32 limbs and int32
     exponents are exact in float64)."""
-    K, scaled = stats.mu.K, stats.mu.scaled
+    words = stats.mu.words if isinstance(stats.mu, MPW) else (stats.mu,)
+    K, scaled = words[0].K, stats.mu.scaled
     parts = []
     for name in IterationStats._fields:
         v = getattr(stats, name)
         if name in _MP_FIELDS:
-            parts.append(v.limbs.to(torch.float64))
-            if scaled:
-                parts.append(v.exp.to(torch.float64).reshape(1))
+            for w in (v.words if isinstance(v, MPW) else (v,)):
+                parts.append(w.limbs.to(torch.float64))
+                if scaled:
+                    parts.append(w.exp.to(torch.float64).reshape(1))
         else:
             parts.append(v.to(torch.float64).reshape(1))
     flat = torch.cat(parts).cpu().numpy()
     out, pos = {}, 0
     for name in IterationStats._fields:
-        n = K + scaled if name in _MP_FIELDS else 1
+        n = (K + scaled) * len(words) if name in _MP_FIELDS else 1
         v = flat[pos:pos + n]
         pos += n
         if name in _MP_FIELDS:
-            out[name] = (v[:K].astype(np.float32), int(v[K])) if scaled else v.copy()
+            hw = [(w[:K].astype(np.float32), int(w[K])) if scaled else w.copy()
+                  for w in v.reshape(len(words), K + scaled)]
+            out[name] = hw if isinstance(stats.mu, MPW) else hw[0]
         elif name in ("is_pd_feasible", "max_complementarity_exceeded"):
             out[name] = bool(v[0])
         else:
@@ -119,10 +125,14 @@ class SolveResult:
 
 def host_mpf(v) -> mpmath.mpf:
     """Exact mpmath value of a HostStats MP field."""
+    if isinstance(v, list):
+        return wide_limbs_to_mpf(v)
     return scaled_limbs_to_mpf(*v) if isinstance(v, tuple) else limbs_to_mpf(v)
 
 
 def _finite(v) -> bool:
+    if isinstance(v, list):
+        return all(_finite(w) for w in v)
     return bool(np.all(np.isfinite(v[0] if isinstance(v, tuple) else v)))
 
 
@@ -132,10 +142,13 @@ def initial_factor_limbs(params: SolverParameters, K: int,
     empirical sizing law of the JAX package, bits >= max(4 log2 Omega,
     2 (log2 Omega + log2 1/gap)) + 30 in limbs of p_bits (53 classic, 24
     scaled), clamped to [max(2, (K+2)//2), K]; params.factor_limbs > 0 pins
-    it.  Scaled float32 arithmetic saturates instead of producing NaN, so
-    there the exploding corrector beta is what triggers the heal."""
+    it.  A wide run (scaled, K > 9) caps the factor at 9 limbs: the
+    factorizations stay on one scaled word and the refinement's wide
+    products recover the rest.  Scaled float32 arithmetic saturates instead
+    of producing NaN, so there the exploding corrector beta is what
+    triggers the heal."""
     p_bits = 24 if scaled else 53
-    factor_cap = K
+    factor_cap = mp.MAX_SCALED_K if scaled and K > mp.MAX_SCALED_K else K
     if params.factor_limbs > 0:
         return min(factor_cap, max(2, params.factor_limbs)), factor_cap
     with mpmath.workprec(64):

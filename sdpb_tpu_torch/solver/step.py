@@ -7,7 +7,7 @@ computed before stepping), so on termination the caller keeps the input
 state as the solution.  The JAX package runs the predictor and corrector
 as a 2-step lax.scan; here they are a loop of two passes with the same
 form: in the predictor pass the -dX dY correction is multiplied by 0.0.
-Classic and scaled states run the same code.  The scaled one keeps its
+Classic, scaled and wide states run the same code.  The scaled one keeps its
 error norms and corrector beta in float32, as the JAX package does on the
 TPU, but its step lengths in float64 (linalg.min_eigenvalue_estimate), so
 that it takes the classic run's steps.
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..models.sdp import Bucket, DeviceSDP
-from ..ops import linalg, mpfloat as mp
+from ..ops import linalg, mpfloat as mp, mpwide
 from ..ops.mpfloat import MP
 from .state import BucketState, SolverState
 
@@ -47,12 +47,16 @@ def _psd_outer_masks(bucket: Bucket):
 
 
 def _scalar_mp(x: float, K: int, device, scaled: bool) -> MP:
+    """A host float as an MP (wide for a scaled K beyond one word)."""
     return mp.from_double(np.float64(x), K, device, scaled=scaled)
 
 
 def _host_mp(parts, device) -> MP:
-    """Device MP from host parts: float64 limbs [K] (classic) or a
-    (float32 limbs [K], int32 exp) pair (scaled)."""
+    """Device MP from host parts: float64 limbs [K] (classic), a (float32
+    limbs [K], int32 exp) pair (scaled) or a list of such pairs, one per
+    word (wide)."""
+    if isinstance(parts, list):
+        return mpwide.wide_parts_to_mp(parts, device)
     if isinstance(parts, tuple):
         return mp.from_parts(*parts, device)
     return MP(torch.as_tensor(np.asarray(parts, dtype=np.float64), device=device))

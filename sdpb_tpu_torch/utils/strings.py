@@ -1,6 +1,5 @@
 """Host-side exact conversions between decimal strings and MP limb arrays
-(the port's copy of sdpb_tpu/utils/strings.py, classic and scaled; the
-wide representation is not ported).
+(the port's copy of sdpb_tpu/utils/strings.py: classic, scaled and wide).
 
 The host parses decimal strings with mpmath at generous precision and
 peels off float64 limbs exactly; the device never sees strings.
@@ -46,11 +45,17 @@ def strs_to_limbs(strings, K: int, np_dtype=np.float64) -> np.ndarray:
 
 def str_to_scaled_limbs(s: str, K: int):
     """Parse one decimal string -> (float32 limbs [K], int32 exp scalar) in
-    the scaled representation (K <= 9)."""
-    from ..ops.mpfloat import f64_limbs_to_scaled_parts
+    the scaled representation; K > 9 gives the wide representation, a LIST
+    of per-word (limbs [Kg], exp) parts."""
+    from ..ops.mpfloat import MAX_SCALED_K, f64_limbs_to_scaled_parts
 
     K64 = -(-(24 * K) // 53) + 1
     l64 = str_to_limbs(s, K64, np.float64)
+    if K > MAX_SCALED_K:
+        from ..ops.mpwide import f64_limbs_to_wide_parts
+
+        return [(l[:, 0], e[0]) for l, e in f64_limbs_to_wide_parts(
+            l64.reshape(K64, 1), K)]
     limbs, exp = f64_limbs_to_scaled_parts(l64.reshape(K64, 1), K)
     return limbs[:, 0], exp[0]
 
@@ -62,6 +67,13 @@ def scaled_limbs_to_mpf(limbs, exp) -> mpmath.mpf:
         for l in np.asarray(limbs, dtype=np.float64):
             acc = acc + mpmath.mpf(float(l))
         return acc * mpmath.power(2, int(exp))
+
+
+def wide_limbs_to_mpf(parts) -> mpmath.mpf:
+    """Exact mpmath value of a wide number given as its words' (limbs [Kg],
+    exp int) parts."""
+    with mpmath.workprec(30 * sum(len(l) for l, _ in parts) + 64):
+        return mpmath.fsum(scaled_limbs_to_mpf(l, e) for l, e in parts)
 
 
 def limbs_to_mpf(limbs) -> mpmath.mpf:

@@ -128,7 +128,8 @@ def test_scaled_dispatch_launches_or_raises(cuda):
     tk.mp_solve_triangular(a, a)
     assert tk.LAUNCHES == {"mp_matmul": 0, "mp_cholesky": 0, "mp_solve_triangular": 0,
                            "mp_matmul_scaled": 1, "mp_cholesky_scaled": 1,
-                           "mp_solve_triangular_scaled": 1}
+                           "mp_solve_triangular_scaled": 1,
+                           "mp_matmul_wide": 0}
     wrong_limbs = tmp.MP(a.limbs.double(), a.exp)
     wrong_exp = tmp.MP(a.limbs, a.exp.long())
     classic = tmp.MP(a.limbs.double())
@@ -232,3 +233,89 @@ def test_solver_on_card_follows_cpu_run(cuda, scaled_limbs):
             if f in ("primal_objective", "dual_objective", "duality_gap", "mu"):
                 got, want = float(host_mpf(got)), float(host_mpf(want))
             assert abs(got - want) <= rel * max(abs(want), 1e-30), f
+
+
+# ---------------------------------------------------------------------------
+# The wide (two-word) GEMM and the wide elementwise ops
+
+
+def _wide(rng, shape, K, decades=3):
+    """A random MPW of K = 2 Kg limbs (CPU) with content in both words."""
+    from sdpb_tpu_torch.ops import mpwide as tmw
+    from torch_parity import mpf_to_f64_limbs, rand_wide_vals
+
+    n = int(np.prod(shape))
+    vals = rand_wide_vals(rng, n, 24 * K, decades)
+    return tmw.wide_parts_to_mp(
+        tmw.f64_limbs_to_wide_parts(mpf_to_f64_limbs(vals, shape, 24 * K), K), "cpu")
+
+
+def _on(x, device):
+    from sdpb_tpu_torch.ops import mpwide as tmw
+    return tmw.MPW(tmp.MP(w.limbs.to(device), w.exp.to(device)) for w in x.words)
+
+
+def _same_wide(x, y) -> bool:
+    return len(x.words) == len(y.words) and all(_same(a, b) for a, b in zip(x.words, y.words))
+
+
+@pytest.mark.parametrize("Kg", [3, 5, 9])
+def test_wide_kernel_matches_plain_version(cuda, Kg, monkeypatch):
+    """The wide GEMM on the card bit for bit with its plain version on the
+    card and on the CPU: a broadcast (padded) batch, Kd = 7 and Kd = 1."""
+    from sdpb_tpu_torch.ops import mpwide as tmw
+    from torch_parity import small_wide_config
+
+    if Kg == 3:
+        monkeypatch.setattr(tmw, "wide_config", small_wide_config)
+    rng = np.random.default_rng(300 + Kg)
+    for ashape, bshape in (((2, 3, 7), (1, 7, 2)), ((3, 4, 1), (3, 1, 5))):
+        a, b = _wide(rng, ashape, 2 * Kg), _wide(rng, bshape, 2 * Kg)
+        tk.reset_launches()
+        out = tk.mp_matmul_wide(_on(a, cuda), _on(b, cuda))
+        assert tk.LAUNCHES["mp_matmul_wide"] == 1
+        a4, b4, unflatten = tk._canon_wide_pair(_on(a, cuda), _on(b, cuda))
+        assert _same_wide(out, unflatten(tk.mp_matmul_wide_plain(a4, b4)))
+        assert _same_wide(out, tk.mp_matmul_wide(a, b))
+        assert tk.LAUNCHES["mp_matmul_wide"] == 1
+
+
+def test_wide_dispatch_raises_on_what_the_kernel_cannot_take(cuda):
+    """G = 3 raises on the card (and on the CPU); a wide operand never runs
+    the plain version on the card."""
+    from sdpb_tpu_torch.ops import mpwide as tmw
+
+    rng = np.random.default_rng(310)
+    a = _on(_wide(rng, (2, 2), 10), cuda)
+    g3 = tmw.MPW(a.words + a.words[:1])
+    tk.reset_launches()
+    with pytest.raises(ValueError, match="G = 2"):
+        tk.mp_matmul_wide(g3, g3)
+    with pytest.raises(ValueError):
+        tk.mp_matmul_wide(_on(g3, "cpu"), _on(g3, "cpu"))
+    with pytest.raises(TypeError):
+        tk.mp_matmul_wide(tmw.MPW(tmp.MP(w.limbs.double(), w.exp) for w in a.words), a)
+    assert tk.LAUNCHES["mp_matmul_wide"] == 0
+
+
+@pytest.mark.parametrize("Kw", [10, 18])
+def test_wide_elementwise_ops_agree_across_devices(cuda, Kw):
+    rng = np.random.default_rng(320 + Kw)
+    a = _wide(rng, (64,), Kw, decades=20)
+    c = tmp.abs_(_wide(rng, (64,), Kw, decades=20))
+    ops = {
+        "add": lambda x, y: tmp.add(x, y),
+        "mul": lambda x, y: tmp.mul(x, y),
+        "div": lambda x, y: tmp.div(x, y),
+        "rsqrt": lambda x, y: tmp.rsqrt(y),
+        "sqrt": lambda x, y: tmp.sqrt(y),
+        "sum": lambda x, y: tmp.sum_(x, axis=0),
+        "round_to": lambda x, y: tmp.round_to(x, 7),
+    }
+    for name, f in ops.items():
+        got, want = f(_on(a, cuda), _on(c, cuda)), f(a, c)
+        if hasattr(want, "words"):
+            assert _same_wide(got, want), name
+        else:
+            assert _same(got, want), name
+    assert torch.equal(tmp.nearest_double(_on(a, cuda)).cpu(), tmp.nearest_double(a))

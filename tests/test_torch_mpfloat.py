@@ -172,3 +172,40 @@ def test_from_double_and_host_limbs():
                                                                     jnp.float64)))
     with pytest.raises(ValueError):
         tmp.from_double(1.0, 3)
+
+
+def _sequential_sweeps(xs, K, chain):
+    """The extraction sweeps one after the other, as the kernels run them:
+    sweep k carries xs[m-1] up to row k; with `chain` the residue rows K..
+    are then summed bottom-up into row K."""
+    xs = list(xs)
+    m = len(xs)
+    for k in range(min(K, m - 1)):
+        for i in range(m - 2, k - 1, -1):
+            xs[i], xs[i + 1] = teft.two_sum(xs[i], xs[i + 1])
+    if chain and m - 1 > K:
+        s = xs[m - 1]
+        for i in range(m - 2, K - 1, -1):
+            s = s + xs[i]
+        xs[K] = s
+    return xs
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("K,m,chain", [(2, 4, True), (3, 8, True), (5, 12, True),
+                                       (9, 30, True), (3, 8, False), (9, 20, False),
+                                       (4, 3, False)])
+def test_sweeps_wavefront_equals_sequential(K, m, chain, dtype):
+    """mpfloat.sweeps (every renorm's extraction, run as a wavefront) gives
+    the bits of the sweeps run one after the other, on rows of mixed signs
+    spread over a wide exponent range, with exact cancellations."""
+    rng = np.random.default_rng(K * 100 + m)
+    rows = rng.standard_normal((m, 257)) * np.exp2(rng.integers(-60, 60, (m, 257)))
+    rows[m // 2, :32] = -rows[0, :32]
+    xs = [torch.as_tensor(r).to(dtype) for r in rows]
+    got = tmp.sweeps(xs, K, chain)
+    want = _sequential_sweeps(xs, K, chain)
+    assert len(got) == len(want) == m
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int64 if dtype == torch.float64 else torch.int32),
+                           w.view(torch.int64 if dtype == torch.float64 else torch.int32))

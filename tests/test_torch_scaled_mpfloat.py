@@ -216,8 +216,12 @@ def test_scaled_conversions_and_range():
     _check("beyond float64", 5, jmp.div(jmp.mul(J(big), J(big)), J(big)), back)
     rel = tmp.to_float_array(tmp.div(tmp.sub(back, T(big)), T(big))).numpy()
     assert np.all(np.abs(rel) < 2.0 ** -(24 * 5 - 16))
-    with pytest.raises(ValueError, match="not ported"):
-        tmp.zeros((2,), 10, "cpu", scaled=True)
+    # beyond 9 limbs a scaled value is wide (two words of ceil(K/2) limbs);
+    # one word still holds at most 9
+    wide = tmp.zeros((2,), 10, "cpu", scaled=True)
+    assert type(wide).__name__ == "MPW" and (wide.G, wide.Kg) == (2, 5)
+    with pytest.raises(ValueError, match="MPW"):
+        tmp._check_scaled_k(10)
     with pytest.raises(TypeError):
         tmp.add(T(big), tmp.zeros((8,), 5, "cpu"))
 

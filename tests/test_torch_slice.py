@@ -25,6 +25,15 @@ Tolerances:
     norms (float32 in the scaled run) within 2^-20 relative; and the
     scaled CLI's out.txt after 3 iterations within 1e-12 relative of the
     JAX classic run's objectives.
+  * the wide representation (two scaled words): staging and the initial
+    state equal to the JAX package's word for word, at K32 = 10 and 17.
+    One wide iteration (two words of Kg = 3 limbs, 144 bits, through a
+    widened wide_config; the JAX wide iteration compiles for far too long
+    on the CPU) from the JAX classic state rounded into wide parts, held to
+    the JAX classic iteration (159 bits): MP statistics within
+    2^-(PREC-24) relative, step lengths and the next state within 1e-12
+    relative, float32 error norms within 2^-20.  The CLI at --precision 216
+    takes two words of 5 limbs on the CPU.
 Quantities that sit at the rounding floor of the arithmetic (residuals
 of an exact step, ~2^-53K) are compared with an absolute floor of
 2^-(53K-40) in place of the relative bound, since their last bits are
@@ -59,7 +68,11 @@ from sdpb_tpu_torch.ops import mpfloat as tmp
 from sdpb_tpu_torch.solver import solve as tsolve, state as tstate, step as tstep
 from sdpb_tpu_torch.utils.strings import scaled_limbs_to_mpf, str_to_scaled_limbs
 
-from torch_parity import limbs_of, parts_of, rel_err, same_scaled, scaled_rel_err
+from sdpb_tpu.ops import mpwide as jmw
+from sdpb_tpu_torch.ops import mpwide as tmw
+
+from torch_parity import (limbs_of, parts_of, rel_err, same_scaled, same_wide,
+                          scaled_rel_err, small_wide_config)
 
 torch.set_num_threads(1)
 
@@ -250,6 +263,111 @@ def test_initial_state_scaled_matches(K32):
     for mb, rb in zip(mine.buckets, ref.buckets):
         for f in ("x", "X_even", "X_odd", "Y_even", "Y_odd"):
             assert same_scaled(getattr(mb, f), getattr(rb, f)), f
+
+
+def _assert_wide_buckets_equal(port, ref):
+    """Layout, masks, and every word's limbs and exponents equal."""
+    assert len(port.buckets) == len(ref.buckets)
+    assert isinstance(port.b, tmw.MPW) and port.b.G == ref.b.G == 2
+    assert same_wide(port.b, ref.b) and same_wide(port.objective_const,
+                                                  ref.objective_const)
+    for pb, rb in zip(port.buckets, ref.buckets):
+        for f in ("bases_even", "bases_odd", "emb_even", "emb_odd", "Bmat", "c"):
+            assert same_wide(getattr(pb, f), getattr(rb, f)), f
+        for f in ("mask", "row_mask", "psd_mask_even", "psd_mask_odd"):
+            a, b = getattr(pb, f).numpy(), np.asarray(getattr(rb, f))
+            assert a.dtype == b.dtype == np.float32 and np.array_equal(a, b), f
+
+
+@pytest.mark.parametrize("source,K32", [("random", 10), ("ladder", 17)])
+def test_build_device_sdp_wide_matches(source, K32):
+    K64 = -(-(24 * K32) // 53) + 1
+    if source == "random":
+        host = random_sdp(num_blocks=5, dim=2, num_points=5, dual_dim=3, K=K64, seed=4)
+    else:
+        host = read_sdp(LADDER, K64, np.float64)
+    port = tsdp.build_device_sdp(host, "cpu", scaled_limbs=K32)
+    _assert_wide_buckets_equal(port, jsdp.build_device_sdp(host, scaled_limbs=K32))
+    assert (port.b.Kg, port.b.K) == ((5, 10) if K32 == 10 else (9, 18))
+
+
+@pytest.mark.parametrize("K32", [10, 17])
+def test_initial_state_wide_matches(K32):
+    """Word 0: Omega's top word on the real diagonal and 1.0 on the padded
+    one; word 1: Omega's remaining mantissa on the real diagonal; zeros at
+    EXP_ZERO."""
+    K64 = -(-(24 * K32) // 53) + 1
+    host = random_sdp(num_blocks=5, dim=2, num_points=5, dual_dim=3, K=K64, seed=4)
+    jsd = jsdp.build_device_sdp(host, pad_to=8, scaled_limbs=K32)
+    tsd = interop.device_sdp_from_numpy(jax.tree.map(np.asarray, jsd), "cpu")
+    assert any(float(bk.psd_mask_even.min()) == 0.0 for bk in tsd.buckets)
+    om_p = str_to_scaled_limbs("1e20", K32)
+    om_d = str_to_scaled_limbs("0.3333333333333333333333333333333333333333333333333", K32)
+    assert isinstance(om_d, list) and om_d[1][0][0] != 0
+    ref = jax.tree.map(np.asarray, jstate.initial_state(jsd, om_p, om_d))
+    mine = tstate.initial_state(tsd, om_p, om_d)
+    assert same_wide(mine.y, ref.y)
+    for mb, rb in zip(mine.buckets, ref.buckets):
+        for f in ("x", "X_even", "X_odd", "Y_even", "Y_odd"):
+            assert same_wide(getattr(mb, f), getattr(rb, f)), f
+
+
+def test_one_wide_iteration_from_jax_classic_state(monkeypatch):
+    """The port's wide iteration (two words of Kg = 3 limbs) from the JAX
+    classic state after one iteration of the smallest random problem,
+    rounded into wide parts, against the JAX classic iteration from that
+    state (tolerances in the module docstring)."""
+    monkeypatch.setattr(tmp, "MAX_SCALED_K", 5)
+    monkeypatch.setattr(tmw, "wide_config", small_wide_config)
+    Kw = 6
+    host, params, K = _problem("dim1_K3")
+    sdp_np, st1_np, s2, st2 = _jax_two_iterations("dim1_K3")
+    sdp = interop.device_sdp_from_numpy(sdp_np, "cpu")
+    wide = lambda x: tmw.wide_parts_to_mp(tmw.f64_limbs_to_wide_parts(limbs_of(x), Kw),
+                                          "cpu")
+    sdp = tsdp.DeviceSDP(objective_const=wide(sdp.objective_const), b=wide(sdp.b),
+                         buckets=[tsdp.Bucket(**{
+                             **{f: wide(getattr(bk, f)) for f in (
+                                 "bases_even", "bases_odd", "emb_even", "emb_odd",
+                                 "Bmat", "c")},
+                             **{f: getattr(bk, f).to(torch.float32) for f in (
+                                 "mask", "row_mask", "psd_mask_even", "psd_mask_odd")},
+                             "real_sizes": bk.real_sizes, "shape": bk.shape})
+                             for bk in sdp.buckets])
+    st1 = tstate.SolverState(
+        y=wide(st1_np.y.limbs),
+        buckets=[tstate.BucketState(*(wide(getattr(bs, f).limbs) for f in (
+            "x", "X_even", "X_odd", "Y_even", "Y_odd"))) for bs in st1_np.buckets])
+    jcfg = _jax_cfg(sdp_np, params, K)
+    parse = lambda v: str_to_scaled_limbs(v, Kw)
+    assert isinstance(parse("0.3"), list)
+    tcfg = tstep.StepConfig(
+        total_psd_rows=sdp.total_psd_rows, gamma=jcfg.gamma,
+        feasible_beta_limbs=parse(params.feasible_centering_parameter),
+        infeasible_beta_limbs=parse(params.infeasible_centering_parameter),
+        primal_error_threshold=jcfg.primal_error_threshold,
+        dual_error_threshold=jcfg.dual_error_threshold,
+        max_complementarity=jcfg.max_complementarity,
+        factor_limbs=3, n_refine=2, kkt_residual_threshold=jcfg.kkt_residual_threshold,
+        kkt_heal=False)
+    stats, new = tstep.make_iteration(tcfg)(sdp, st1)
+    h = tsolve.to_host(stats)
+    assert isinstance(h.mu, list) and len(h.mu) == 2
+    with mpmath.workprec(300):
+        for f in ("primal_objective", "dual_objective", "duality_gap", "mu"):
+            mine, ref = tsolve.host_mpf(getattr(h, f)), limbs_to_mpf(getattr(s2, f).limbs)
+            assert abs(mine - ref) <= mpmath.mpf(2) ** -(24 * Kw - 24) * abs(ref), f
+    for f in ("primal_step", "dual_step"):
+        _cmp(f, getattr(h, f), getattr(s2, f), 1e-12, 0.0)
+    for f in ("primal_error_P", "primal_error_p", "dual_error"):
+        _cmp(f, getattr(h, f), getattr(s2, f), 2.0 ** -20, 2.0 ** -(24 * Kw - 40))
+    assert h.is_pd_feasible == bool(s2.is_pd_feasible)
+    back = lambda m: tmp.host_f64_limbs(m, K)
+    _cmp("y", back(new.y), st2.y.limbs, 1e-12, 2.0 ** -(24 * Kw - 40), True)
+    for gb, jb in zip(new.buckets, st2.buckets):
+        for f in ("x", "X_even", "X_odd", "Y_even", "Y_odd"):
+            _cmp(f, back(getattr(gb, f)), getattr(jb, f).limbs, 1e-12,
+                 2.0 ** -(24 * Kw - 40), True)
 
 
 @pytest.mark.parametrize("name", list(PROBLEMS))
@@ -486,20 +604,49 @@ def test_scaled_cli_on_cpu_matches_jax(tmp_path, monkeypatch):
 
 
 def test_scaled_cli_refuses_the_wide_path_and_a_missing_card():
-    """Above 9 float32 limbs (--precision > 208) the scaled CLI stops and
-    names the unported wide path; --device cuda without CUDA stops too."""
+    """Above 18 float32 limbs (--precision > 424, three wide words) the
+    scaled CLI stops and names the unported three-word path; --device cuda
+    without CUDA stops too."""
     from sdpb_tpu_torch.cli import sdpb as cli
 
     assert cli.limbs_for_precision(208, 24) == 9
     assert cli.limbs_for_precision(209, 24) == 10
-    for prec in ("209", "216", "400"):
-        with pytest.raises(SystemExit, match="ROADMAP B5"):
+    assert cli.limbs_for_precision(424, 24) == 18
+    assert cli.limbs_for_precision(425, 24) == 19
+    for prec in ("425", "600"):
+        with pytest.raises(SystemExit, match="ROADMAP B7"):
             cli.run(["-s", str(CERTIFICATE), "--arithmetic", "scaled", "--device", "cpu",
                      "--precision", prec])
     if not torch.cuda.is_available():
         for arith in ("classic", "scaled"):
             with pytest.raises(SystemExit, match="CUDA is not available"):
                 cli.run(["-s", str(CERTIFICATE), "--arithmetic", arith])
+
+
+def test_wide_cli_on_cpu(tmp_path):
+    """python -m sdpb_tpu_torch.cli.sdpb --arithmetic scaled --precision 216
+    --device cpu (two words of 5 float32 limbs) on a small random SDP for
+    one iteration: the two-word banner, out.txt at the wide digit count.
+    The factor is pinned at 3 limbs (4 refinement passes): the plain
+    factorizations at the default 9 limbs would take a minute here."""
+    from sdpb_tpu.io.sdp_zip import write_sdp
+
+    write_sdp(tmp_path / "sdp.zip", random_sdp(num_blocks=2, dim=1, num_points=3,
+                                                dual_dim=2, K=6, seed=3))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "sdpb_tpu_torch.cli.sdpb", "--device", "cpu",
+         "--arithmetic", "scaled", "-s", str(tmp_path / "sdp.zip"),
+         "-o", str(tmp_path / "out"), "--precision", "216", "--maxIterations", "1",
+         "--initialMatrixScalePrimal", "1e2", "--initialMatrixScaleDual", "1e2",
+         "--factorLimbs", "3"],
+        capture_output=True, text=True, env=env, cwd=str(REPO), timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    assert "precision       : 216 bits (2 words × 5 scaled float32 limbs)" in proc.stdout
+    assert "maxIterations exceeded" in proc.stdout
+    out = _out_values(tmp_path / "out")
+    assert len(out["primalObjective"].lstrip("-").split("e")[0]) - 1 == 73  # 240 bits
+    assert (tmp_path / "out" / "y.txt").read_text().splitlines()[0] == "2 1"
 
 
 def test_committed_certificate_matches_sdp2input():
@@ -567,6 +714,13 @@ for arith in ("classic", "scaled"):
                    "--precision", "64", "--arithmetic", arith, "--maxIterations", "2",
                    "--verbosity", "0"])
     assert str(res.terminate_reason) == "maxIterations exceeded", res.terminate_reason
+# the wide path: staging, a wide product through the GEMM wrapper, a division
+import numpy as np
+from sdpb_tpu_torch.ops import kernels, linalg, mpfloat as mp, mpwide
+a = mp.from_double(np.arange(1.0, 7.0).reshape(2, 3) / 7, 18, "cpu", scaled=True)
+prod = linalg.matmul(a, a.mT)
+assert isinstance(prod, mpwide.MPW) and prod.shape == (2, 2)
+assert float(mp.to_double(mp.div(prod, prod))[0, 0]) == 1.0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sdpb_tpu"))
 assert not bad, bad
 print(len(names))
@@ -603,15 +757,15 @@ def _jax_package_references(path: Path, root: Path = REPO) -> list:
 
 def test_port_never_imports_jax(tmp_path):
     """With jax and the JAX package blocked at import, every module of the
-    port imports and the CLI solves (2 iterations of the certificate, in
-    both representations); no source of the port, nor chip_smoke.py,
+    port (the wide ones included) imports, the CLI solves (2 iterations of
+    the certificate, classic and scaled) and the wide ops run; no source of the port, nor chip_smoke.py,
     names the JAX package as a module."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _GUARD, str(CERTIFICATE), str(tmp_path)],
                           capture_output=True, text=True, env=env, cwd=str(REPO),
                           timeout=600)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 22
     sources = sorted((REPO / "sdpb_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) >= 20
     found = [f for p in sources for f in _jax_package_references(p)]

@@ -4,6 +4,8 @@ from a seed and handed to both packages as the same float64 limbs.
 
 Importing this module imports no JAX (only `J` does), so the CUDA tests
 can use it on a machine without JAX."""
+import math
+
 import numpy as np
 import torch
 
@@ -116,3 +118,94 @@ def elementwise_rel_err(a, b) -> float:
     d = np.abs(tmp.to_float_array(tmp.sub(T(a), T(b))).numpy())
     ref = np.abs(b[0] + b[1])
     return float(np.max(d / np.where(ref > 0, ref, 1.0)))
+
+
+# ---------------------------------------------------------------------------
+# Wide (two-word) values
+
+
+def small_wide_config(K):
+    """A wide configuration of two words of ceil(K/2) limbs for any K, so
+    that wide values of 6 limbs (Kg = 3) can be staged (both packages'
+    wide_config otherwise demand K > 9)."""
+    return 2, -(-K // 2)
+
+
+def JW(parts):
+    """Wide word parts as a JAX package MPW."""
+    from sdpb_tpu.ops.mpwide import MPW
+    return MPW(tuple(J(p) for p in parts))
+
+
+def wide_parts_of(x):
+    """Host word parts of a JAX or port MPW."""
+    return [parts_of(w) for w in x.words]
+
+
+def same_wide(x, y) -> bool:
+    """Wide values equal word for word, limb for limb and exponent for
+    exponent."""
+    return all(same_scaled(a, b) for a, b in zip(x.words, y.words)) and \
+        len(x.words) == len(y.words)
+
+
+def wide_to_mpf(x, prec):
+    """Exact mpmath values (flattened) of a JAX or port MPW (or word
+    parts)."""
+    import mpmath
+    parts = x if isinstance(x, list) else wide_parts_of(x)
+    words = [(np.asarray(l, np.float64).reshape(l.shape[0], -1),
+              np.asarray(e).reshape(-1)) for l, e in parts]
+    out = []
+    with mpmath.workprec(prec + 120):
+        for i in range(words[0][1].size):
+            acc = mpmath.mpf(0)
+            for wl, we in words:
+                acc += mpmath.fsum(mpmath.mpf(float(v)) for v in wl[:, i]) * \
+                    mpmath.mpf(2) ** int(we[i])
+            out.append(acc)
+    return out
+
+
+def mpf_to_f64_limbs(vals, shape, prec):
+    """Exact mpmath values -> float64 limb stacks [K64, *shape] carrying
+    prec + 106 bits (the input of the wide staging)."""
+    import mpmath
+    K64 = -(-prec // 53) + 2
+    out = np.zeros((K64, len(vals)))
+    with mpmath.workprec(prec + 120):
+        for i, x in enumerate(vals):
+            rem = x
+            for k in range(K64):
+                out[k, i] = float(rem)
+                rem = rem - mpmath.mpf(out[k, i])
+    return out.reshape((K64,) + tuple(shape))
+
+
+def rand_wide_vals(rng, n, prec, decades=6):
+    """Random mpmath values with content at the top, the middle and the
+    bottom of `prec` bits, over +-decades decades."""
+    import mpmath
+    vals = []
+    with mpmath.workprec(prec + 120):
+        for _ in range(n):
+            x = (mpmath.mpf(rng.uniform(-1, 1))
+                 + mpmath.mpf(rng.uniform(-1, 1)) * mpmath.mpf(2) ** (-prec // 2)
+                 + mpmath.mpf(rng.uniform(-1, 1)) * mpmath.mpf(2) ** (-prec + 40))
+            vals.append(x * mpmath.mpf(10) ** int(rng.integers(-decades, decades + 1)))
+    return vals
+
+
+def max_rel_bits(got, want, prec):
+    """max over elements of log2(|got - want| / |want|) (-inf when equal);
+    a nonzero result for a zero want counts as +inf."""
+    import mpmath
+    worst = -math.inf
+    with mpmath.workprec(prec + 120):
+        for g, w in zip(got, want):
+            if g == w:
+                continue
+            if w == 0:
+                return math.inf
+            worst = max(worst, float(mpmath.log(abs(g - w) / abs(w), 2)))
+    return worst
