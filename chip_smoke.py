@@ -6,7 +6,7 @@
 Run from the root of a checkout.  Phases, each fatal on failure:
   1. device: nvidia-smi name and power limit, torch / CUDA / nvcc versions;
   2. build: the CUDA kernels, from sdpb_tpu_torch/csrc, all limb counts,
-     classic and scaled, and the wide GEMM for every word size;
+     classic and scaled, the wide GEMM for every word size, the peak probe;
   3. exactness: TwoSum and TwoProd exact on the card, in plain torch and
      inside the kernels (through 1 x 1 and 1 x 2 mp_matmuls), float64 and
      float32;
@@ -34,14 +34,26 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      float32 limbs) and classic (K=8), WIDE_ITERATIONS + 1 iterations each:
      finite statistics, falling mu, out.txt, the wide GEMM and the scaled
      factor and solve launched, identical step lengths, and the digits the
-     objectives share (at least 70: one 216-bit word holds ~65).
+     objectives share (at least 70: one 216-bit word holds ~65);
+ 12. the peak probe against its plain version at the 512 x 512 tile,
+     float32 and float64, bit for bit at 2048 steps, FMUL/FADD and
+     DMUL/DADD in its SASS and no FFMA/DFMA; its time at 65536 steps, the
+     measured CUDA-core rates beside the data sheet's;
+ 13. the per-phase profiler (sdpb_tpu_torch.tools.profile_phases) on the
+     ladder, --quant 8, Omega 1e4: classic (K=4), scaled (K32=9) and wide
+     (K32=17), each record on one line: every phase's time finite and
+     positive, the probe and the representation's kernels launched, and
+     the scaled and wide iteration times within 25% of phases 9 and 11's.
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is the kernels' JSON record, and the line before that the card's name
 and power limit.  Without CUDA, or outside a checkout, the script exits
 non-zero and prints no result.
 """
+import contextlib
+import io
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -70,6 +82,11 @@ KERNELS = {
 }
 WIDE_KERNEL = ("mp_matmul_wide", "sdpb_tpu_torch/csrc/mp_wide_matmul.cu",
                "sdpb_tpu/ops/pallas_kernels.py:161")
+PROBE_KERNEL = ("peak_probe", "sdpb_tpu_torch/csrc/peak_probe.cu",
+                "sdpb_tpu/tools/profile_phases.py:97")
+PROBE_TILE, PROBE_CHECK_STEPS, PROBE_STEPS = (512, 512), 2048, 65536
+# phase 13's profiler runs: (label, --scaledLimbs, --reps)
+PROFILES = (("classic", 0, 2), ("scaled", 9, 2), ("wide", 17, 1))
 # H100 SXM at 700 W (NVIDIA data sheet): non-fused add/mul per second on
 # the CUDA cores (34 and 67 TFLOP/s count a fused multiply-add as two) and
 # device memory bytes per second
@@ -99,11 +116,10 @@ def phase(name):
 
 def device_phase(torch):
     phase("1. device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"card: {smi}")
     from sdpb_tpu_torch.ops.kernels import _nvcc
+    from sdpb_tpu_torch.tools.profile_phases import card_line
+    smi = card_line()
+    print(f"card: {smi}")
     nvcc = subprocess.run([_nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -122,9 +138,10 @@ def build_phase(kernels):
             kernels._library(K, scaled)
     for K in kernels.WIDE_KG:
         kernels._library(K, kernels.WIDE)
+    kernels._probe_library()
     print(f"build: {time.time() - t0:.1f} s for K={list(kernels.K_RANGE)}, classic "
-          f"and scaled, and the wide GEMM for Kg={list(kernels.WIDE_KG)} "
-          f"(compiled now: {len(built)} libraries)")
+          f"and scaled, the wide GEMM for Kg={list(kernels.WIDE_KG)} and the peak "
+          f"probe (compiled now: {len(built)} libraries)")
     return time.time() - t0
 
 
@@ -237,13 +254,15 @@ def _renorm_ops(K, M):
 
 def mp_op_counts(K, scaled):
     """Float operations of one MP add, mul, rsqrt and reciprocal inside the
-    kernels, counted from mp.cuh / mp_scaled.cuh (split 5, TwoSum 6; a
+    kernels, counted from mp.cuh / mp_scaled.cuh (TwoSum 6; an exact
+    product and its error 2, a product and a fused multiply-add: the least
+    work, where the kernels run Dekker's split and 9-operation error; a
     scaled add aligns both operands and normalizes, 3 multiplies per limb
     each; a scaled product prescales 2K limbs and puts each of its K^2+1
     terms back with 2 multiplies; integer exponent work is not counted)."""
     from sdpb_tpu_torch.ops.mpfloat import newton_steps
     add = _renorm_ops(K, 2 * K)
-    mul = (10 * K + K * (K + 1) // 2 + 8 * (K * (K - 1) // 2) + (2 * K - 3)
+    mul = (K * (K + 1) // 2 + K * (K - 1) // 2 + (2 * K - 3)
            + _renorm_ops(K, K * K + 1))
     seed = 3
     if scaled:
@@ -265,12 +284,14 @@ def _sweep_ops(m, K, chain):
 def wide_op_counts(K):
     """Float operations of one wide fused multiply-add (mpw::fma_acc) and of
     one word TwoSum (mpw::add_full) at Kg = K, counted from mp_wide.cuh:
-    TwoSum 6, quick TwoSum 3, split 5, a Dekker product and error 9, a
-    staged power-of-two scaling 3 multiplies (2 for the limb lifts); the
-    integer exponent work and the exponent-field lifts are not counted."""
+    TwoSum 6, quick TwoSum 3, an exact product and its error 2 (a product
+    and a fused multiply-add, the least work; the kernel runs Dekker's
+    split and 9-operation error), a staged power-of-two scaling 3
+    multiplies (2 for the limb lifts); the integer exponent work and the
+    exponent-field lifts are not counted."""
     finish = lambda m: _sweep_ops(m, K, True) + 3 * (2 * K - 1) + 3 * K
     extract = 12 * (K - 1) + 3 * K
-    products = 10 * K + 9 * K * K
+    products = 2 * K * K
     nf, nm = 2 * K * K, K * K + K - 1
     add_st = 6 * K + finish(2 * K + 2)
     mul_st = 2 * K + products + 2 * nm + finish(nm + 2)
@@ -639,6 +660,131 @@ def wide_ladder_phase(torch, kernels, cli, dev):
     return wide
 
 
+def probe_phase(torch, kernels, dev, smi):
+    """Phase 12: the probe's SASS (unfused adds and multiplies only); the
+    peak probe against its plain version at the full tile, float32 and
+    float64, bit for bit at PROBE_CHECK_STEPS; kernel ms at
+    PROBE_STEPS (median of 5), plain ms (once), the bound (operations over
+    the data-sheet rate), the measured rate beside the data sheet's, and
+    the rate at PROBE_CHECK_STEPS (the JAX tool's steps) beside it."""
+    phase("12. peak probe against its plain version; CUDA-core rates")
+    from sdpb_tpu_torch.tools.profile_phases import PROBE_A, PROBE_B
+    # a fused chain would read ~2x the rate of the unfused adds and
+    # multiplies that the MP kernels issue
+    sass = subprocess.run([str(Path(kernels._nvcc()).with_name("cuobjdump")), "-sass",
+                           str(kernels.library_path(0, kernels.PROBE))],
+                          capture_output=True, text=True, check=True).stdout
+    ops = {op: len(re.findall(rf"\b{op}\b", sass))
+           for op in ("FMUL", "FADD", "FFMA", "DMUL", "DADD", "DFMA")}
+    print(f"peak_probe SASS instructions: {ops}")
+    check(ops["FFMA"] == ops["DFMA"] == 0 and
+          min(ops[op] for op in ("FMUL", "FADD", "DMUL", "DADD")) > 0,
+          f"peak_probe SASS is not an unfused chain: {ops}")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        f32 = dtype == torch.float32
+        x = torch.rand(PROBE_TILE, generator=gen, dtype=dtype, device=dev) + 0.5
+        ok = kernels.peak_probe(x, PROBE_CHECK_STEPS, PROBE_A, PROBE_B)
+        op = kernels.peak_probe_plain(x, PROBE_CHECK_STEPS, PROBE_A, PROBE_B)
+        err = float((ok - op).abs().max())
+        check(torch.equal(ok, op), f"peak_probe {dtype}: kernel differs from plain "
+                                   f"(max {err})")
+        ms = _time_ms(torch, lambda: kernels.peak_probe(x, PROBE_STEPS, PROBE_A, PROBE_B))
+        short_ms = _time_ms(torch, lambda: kernels.peak_probe(
+            x, PROBE_CHECK_STEPS, PROBE_A, PROBE_B))
+        _, pms = _timed_once(torch, lambda: kernels.peak_probe_plain(
+            x, PROBE_STEPS, PROBE_A, PROBE_B))
+        ops = 2.0 * PROBE_STEPS * x.numel()
+        t_ops = ops / OPS_PER_S[f32]
+        t_bytes = 2 * x.numel() * x.element_size() / BYTES_PER_S
+        bound, by = 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+        rate = ops / (ms / 1e3)
+        clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                                "--format=csv,noheader"], capture_output=True,
+                               text=True).stdout.strip()
+        print(f"peak_probe {str(dtype)[6:]}: {rate:.4e} unfused add/mul per s = "
+              f"{100 * rate / OPS_PER_S[f32]:.1f}% of the data sheet's "
+              f"{OPS_PER_S[f32]:.3g} (700 W); at the JAX tool's {PROBE_CHECK_STEPS} steps "
+              f"{2.0 * PROBE_CHECK_STEPS * x.numel() / (short_ms / 1e3):.4e} "
+              f"({short_ms:.4f} ms); SM clock now, max: {clock}")
+        # above the sheet the build fused the chain; far below it the probe
+        # does not measure the cores
+        check(rate <= 1.05 * OPS_PER_S[f32], f"peak_probe {dtype}: {rate:.3e} per s is "
+                                             f"above the data sheet (fused?)")
+        check(rate >= 0.5 * OPS_PER_S[f32], f"peak_probe {dtype}: {rate:.3e} per s")
+        rows.append((f"peak_probe {str(dtype)[6:]}", f"[512,512] x {PROBE_STEPS} steps",
+                     err, rate, ms, pms, bound, by))
+    print(f"{'kernel':22s} {'shape':40s} {'max|k-p|':>9s} {'ops/s':>10s} "
+          f"{'kernel ms':>10s} {'plain ms':>10s} {'bound ms':>10s} bound by")
+    for name, shape, err, rate, ms, pms, bound, by in rows:
+        print(f"{name:22s} {shape:40s} {err:9.1e} {rate:10.3e} {ms:10.3f} "
+              f"{pms:10.1f} {bound:10.4f} {by}")
+    print(f"{smi}; launches {kernels.LAUNCHES['peak_probe']}")
+    return rows
+
+
+def profile_phase(torch, kernels, dev, sladder, wladder):
+    """Phase 13: the per-phase profiler on the ladder in the three
+    representations; each record printed on one line."""
+    phase("13. per-phase profiler on the ladder: classic K=4, scaled K32=9, "
+          "wide K32=17 (--quant 8, Omega 1e4)")
+    from sdpb_tpu_torch.tools import profile_phases
+    paths = {"classic": [kernels.counter(n, False) for n in kernels.KERNEL_NAMES],
+             "scaled": [kernels.counter(n, True) for n in kernels.KERNEL_NAMES],
+             "wide": ["mp_matmul_wide", "mp_cholesky_scaled", "mp_solve_triangular_scaled"]}
+    records, probe_launches = {}, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, limbs, reps in PROFILES:
+            out = Path(tmp) / f"{label}.json"
+            kernels.reset_launches()
+            t0 = time.time()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = profile_phases.main([
+                    "--fixture", str(LADDER), "--scaledLimbs", str(limbs), "--quant", "8",
+                    "--omega", "1e4", "--reps", str(reps), "--json", str(out),
+                    "--device", str(dev)])
+            launches = dict(kernels.LAUNCHES)
+            rec = json.loads(out.read_text())
+            check(rc == 0, f"profile_phases {label} returned {rc}")
+            print(f"{label}: {time.time() - t0:.1f} s; launches "
+                  f"{ {k: v for k, v in launches.items() if v} }")
+            print(json.dumps(rec))
+            ms = [r["ms"] for r in rec["phases"][:-1]] + [rec["iteration_ms"]]
+            check(all(math.isfinite(m) and m > 0 for m in ms),
+                  f"profile_phases {label}: a phase time is not finite and positive: {ms}")
+            check(launches["peak_probe"] == 6, f"{label}: the probe ran "
+                                               f"{launches['peak_probe']} times, not 6")
+            check(all(launches[n] > 0 for n in paths[label]),
+                  f"profile_phases {label}: a kernel did not run: {launches}")
+            probe_launches += launches["peak_probe"]
+            records[label] = rec
+    print(f"{'phase':22s} " + " ".join(f"{lb + ' ms':>12s} {'%':>5s} {'%peak':>6s}"
+                                       for lb, _, _ in PROFILES))
+    for i, r in enumerate(records["classic"]["phases"]):
+        cells = []
+        for lb, _, _ in PROFILES:
+            q = records[lb]["phases"][i]
+            pk = q.get("pct_of_peak")
+            cells.append(f"{q['ms']:12.2f} {q['pct_of_iteration']:5.1f} "
+                         f"{'' if pk is None else pk:>6}")
+        print(f"{r['phase'][:22]:22s} " + " ".join(cells))
+    print("iteration ms: " + ", ".join(f"{lb} {records[lb]['iteration_ms']:.2f}"
+                                       for lb, _, _ in PROFILES)
+          + f"; peak GFLOP/s {records['classic']['peak_gflops_measured']} float64, "
+          f"{records['scaled']['peak_gflops_measured']} float32; "
+          f"card {records['scaled']['card']}")
+    for lb, run in (("scaled", sladder), ("wide", wladder)):
+        ratio = records[lb]["iteration_ms"] / 1e3 / run["s_per_it"]
+        print(f"{lb} iteration {records[lb]['iteration_ms'] / 1e3:.3f} s against "
+              f"{run['s_per_it']:.3f} s/iteration in the solve: ratio {ratio:.3f}")
+        # the profiler times the solver's own iteration, at the factor limbs
+        # its Omega gives; more than 25% away, it timed something else
+        check(0.75 <= ratio <= 1.25, f"profile_phases {lb}: iteration {ratio:.3f}x the "
+                                     f"solve's s/iteration")
+    return records, probe_launches
+
+
 def main():
     if not (ROOT / "sdpb_tpu_torch").is_dir() or not LADDER.exists() \
             or not CERTIFICATE.exists():
@@ -666,6 +812,8 @@ def main():
     sladder = ladder_phase(torch, kernels, cli, dev, scaled=True, classic=ladder)
     wrows = wide_kernel_phase(torch, kernels, dev)
     wladder = wide_ladder_phase(torch, kernels, cli, dev)
+    prows = probe_phase(torch, kernels, dev, smi)
+    profiles, probe_launches = profile_phase(torch, kernels, dev, sladder, wladder)
     check("jax" not in sys.modules, "the port imported jax")
     check(not any(m == "sdpb_tpu" or m.startswith("sdpb_tpu.") for m in sys.modules),
           "the port imported the JAX package")
@@ -689,6 +837,12 @@ def main():
                    "max_abs_err": max(r[2] for r in wrows), "ms": first[4],
                    "plain_ms": first[5], "bound_ms": first[6], "bound_by": first[7],
                    "library_ms": None})
+    name, source, replaces = PROBE_KERNEL
+    _, _, _, _, ms, pms, bound, by = prows[0]
+    record.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                   "launches": probe_launches, "max_abs_err": max(r[2] for r in prows),
+                   "ms": ms, "plain_ms": pms, "bound_ms": bound, "bound_by": by,
+                   "library_ms": None})
     wc = wladder["classic"]
     print(f"\nsummary: build {build_s:.1f} s; certificate {cert['iterations']} "
           f"iterations classic, {scert['iterations']} scaled; ladder "
@@ -700,7 +854,10 @@ def main():
           f"classic (K=8), peak {wladder['peak_bytes'] / 2**30:.2f} / "
           f"{wc['peak_bytes'] / 2**30:.2f} GiB, {wladder['digits']:.1f} digits shared, "
           f"wide GEMM launches {wladder['launches']['mp_matmul_wide']} in "
-          f"{wladder['iterations']} iterations; total {time.time() - t_start:.1f} s")
+          f"{wladder['iterations']} iterations; CUDA-core rates {prows[0][3]:.4e} float32, "
+          f"{prows[1][3]:.4e} float64 per s; profiler iterations "
+          + ", ".join(f"{lb} {profiles[lb]['iteration_ms']:.1f} ms" for lb, _, _ in PROFILES)
+          + f"; total {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

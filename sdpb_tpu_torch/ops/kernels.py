@@ -9,6 +9,11 @@ sends every matmul, Cholesky and triangular solve to them):
   * `mp_solve_triangular`  csrc/mp_trsm.cu      <- pallas_kernels.py::_trsm_kernel
   * `mp_matmul_wide`       csrc/mp_wide_matmul.cu <- pallas_kernels.py::_matmul_wide_kernel
 
+and one measures the card: `peak_probe` (csrc/peak_probe.cu <- the inner
+kernel of tools/profile_phases.py::vpu_peak_gflops), the CUDA-core rate of
+unfused float32 or float64 adds and multiplies that the per-phase profiler
+(tools/profile_phases.py) reports against.
+
 The first three are built for both MP representations: the classic build
 (float64 limbs, csrc/mp.cuh) replaces the `scaled=False` branch of each
 Pallas kernel, the scaled build (float32 limbs and an int32 exponent per
@@ -33,7 +38,8 @@ into `build/sdpb_tpu_torch/` of the checkout, named by a hash of the
 sources and flags; they are bound with ctypes (plain C entry points
 returning `cudaGetLastError()`, exponent pointers NULL for classic).  The
 wide GEMM has one library per word size Kg (-DMP_WIDE=1 -DMP_SCALED=1
--DMP_K=Kg), built in the same parallel pass.
+-DMP_K=Kg), built in the same parallel pass, and so has the peak probe (one
+library, no limb count).
 """
 from __future__ import annotations
 
@@ -59,6 +65,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sdpb_tpu_torch"
 SOURCES = ("mp_matmul.cu", "mp_cholesky.cu", "mp_trsm.cu")
 WIDE_SOURCES = ("mp_wide_matmul.cu",)
+PROBE_SOURCES = ("peak_probe.cu",)
 # no contraction (a fused TwoProd or TwoSum loses its error term), and
 # IEEE subnormals, division and square root, as the plain versions have
 # them on the CPU
@@ -69,11 +76,13 @@ K_RANGE = range(2, 10)
 REPRESENTATIONS = (False, True)     # classic, scaled
 WIDE = "wide"                       # the representation key of the wide libraries
 WIDE_KG = range(3, 10)              # word sizes of the wide GEMM (Kg = 3 for tests)
+PROBE = "probe"                     # the key of the peak probe's library (no limb count)
 CHUNK = 8   # contraction chunk of the matmul (pallas_kernels.py:101)
 
 KERNEL_NAMES = ("mp_matmul", "mp_cholesky", "mp_solve_triangular")
 LAUNCHES = {name + suffix: 0 for suffix in ("", "_scaled") for name in KERNEL_NAMES}
 LAUNCHES["mp_matmul_wide"] = 0
+LAUNCHES["peak_probe"] = 0
 _LIBS = {}
 
 
@@ -108,29 +117,41 @@ def _source_hash() -> str:
 
 
 def _tag(rep) -> str:
-    return "w" if rep == WIDE else ("s" if rep else "c")
+    return {WIDE: "w", PROBE: "p"}.get(rep) or ("s" if rep else "c")
 
 
 def library_path(K: int, scaled=False) -> Path:
     """The library of limb count K in a representation: False (classic),
-    True (scaled) or WIDE (K = Kg, the wide GEMM)."""
+    True (scaled) or WIDE (K = Kg, the wide GEMM); PROBE (K ignored) is the
+    peak probe's."""
+    if scaled == PROBE:
+        return BUILD_DIR / f"libpeak_{_source_hash()}.so"
     return BUILD_DIR / f"libmpk_{_source_hash()}_k{K}{_tag(scaled)}.so"
 
 
+def _sources(rep) -> tuple:
+    return {WIDE: WIDE_SOURCES, PROBE: PROBE_SOURCES}.get(rep, SOURCES)
+
+
 def _defines(K: int, rep) -> list:
+    if rep == PROBE:
+        return []
     if rep == WIDE:
         return [f"-DMP_K={K}", "-DMP_SCALED=1", "-DMP_WIDE=1"]
     return [f"-DMP_K={K}", f"-DMP_SCALED={int(rep)}"]
 
 
-def build(Ks=K_RANGE, representations=REPRESENTATIONS, wide_Ks=WIDE_KG) -> list:
+def build(Ks=K_RANGE, representations=REPRESENTATIONS, wide_Ks=WIDE_KG,
+          probe: bool = True) -> list:
     """Compile the libraries that are missing: (K, classic/scaled) for K in
-    Ks, (Kg, WIDE) for Kg in wide_Ks; the (source, K, representation)
-    objects in parallel, one nvcc each, as many at a time as there are
-    cores.  Returns the (K, representation) pairs built."""
+    Ks, (Kg, WIDE) for Kg in wide_Ks, (0, PROBE) with `probe`; the (source,
+    K, representation) objects in parallel, one nvcc each, as many at a
+    time as there are cores.  Returns the (K, representation) pairs built."""
     todo = [(K, s) for s in representations for K in Ks
             if not library_path(K, s).exists()]
     todo += [(K, WIDE) for K in wide_Ks if not library_path(K, WIDE).exists()]
+    if probe and not library_path(0, PROBE).exists():
+        todo.append((0, PROBE))
     if not todo:
         return todo
     nvcc = _nvcc()
@@ -140,16 +161,13 @@ def build(Ks=K_RANGE, representations=REPRESENTATIONS, wide_Ks=WIDE_KG) -> list:
         def obj(K, s, src):
             return str(Path(tmp) / f"{src}.k{K}{_tag(s)}.o")
 
-        def sources(s):
-            return WIDE_SOURCES if s == WIDE else SOURCES
-
         compiles = [[nvcc, *NVCC_FLAGS, *_defines(K, s), "-c", str(CSRC / src),
-                     "-o", obj(K, s, src)] for K, s in todo for src in sources(s)]
+                     "-o", obj(K, s, src)] for K, s in todo for src in _sources(s)]
         with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
             list(pool.map(_run, compiles))
         for K, s in todo:
             so = Path(tmp) / f"k{K}{_tag(s)}.so"
-            _run([nvcc, "-shared", "-o", str(so), *(obj(K, s, src) for src in sources(s))])
+            _run([nvcc, "-shared", "-o", str(so), *(obj(K, s, src) for src in _sources(s))])
             os.replace(so, library_path(K, s))
     print(f"built CUDA kernels for (K, representation) {todo} in "
           f"{time.time() - t0:.1f} s ({BUILD_DIR})", flush=True)
@@ -171,9 +189,9 @@ def _library(K: int, scaled) -> ctypes.CDLL:
     lib = _LIBS.get((K, scaled))
     if lib is None:
         if wide:
-            build([], [], [K])
+            build([], [], [K], probe=False)
         else:
-            build([K], [scaled], [])
+            build([K], [scaled], [], probe=False)
         lib = ctypes.CDLL(str(library_path(K, scaled)))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         if wide:
@@ -478,3 +496,67 @@ def mp_solve_triangular(t: MP, b: MP, lower: bool = True) -> MP:
                 (B, n, m, int(lower)))
         LAUNCHES[counter("mp_solve_triangular", b4.scaled)] += 1
     return unflatten(X)
+
+
+# ---------------------------------------------------------------------------
+# Peak probe
+
+
+PROBE_DTYPES = (torch.float32, torch.float64)
+
+
+def _probe_library() -> ctypes.CDLL:
+    lib = _LIBS.get(PROBE)
+    if lib is None:
+        build([], [], [], probe=True)
+        lib = ctypes.CDLL(str(library_path(0, PROBE)))
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.peak_probe_f32.argtypes = [vp, vp, ci, ci, ctypes.c_float, ctypes.c_float, vp]
+        lib.peak_probe_f64.argtypes = [vp, vp, ci, ci, ctypes.c_double, ctypes.c_double,
+                                       vp]
+        lib.peak_probe_f32.restype = lib.peak_probe_f64.restype = ci
+        _LIBS[PROBE] = lib
+    return lib
+
+
+def peak_probe_plain(x: torch.Tensor, steps: int, a: float, b: float) -> torch.Tensor:
+    """Plain version of the peak probe: `steps` passes of x * a + b, the
+    multiply and the add two torch ops (each rounded on its own), with a
+    and b as 0-dim tensors of x's dtype."""
+    a_t = torch.tensor(a, dtype=x.dtype, device=x.device)
+    b_t = torch.tensor(b, dtype=x.dtype, device=x.device)
+    for _ in range(steps):
+        x = torch.add(torch.mul(x, a_t), b_t)
+    return x
+
+
+def peak_probe(x: torch.Tensor, steps: int, a: float, b: float) -> torch.Tensor:
+    """`steps` dependent passes of x <- round(round(x * a) + b) over every
+    element of a float32 or float64 tensor; a and b are rounded to x's
+    dtype.  A contiguous CUDA tensor launches csrc/peak_probe.cu, a CPU
+    tensor runs the plain version, anything else raises."""
+    if x.dtype not in PROBE_DTYPES:
+        raise TypeError(f"the peak probe takes float32 or float64, got {x.dtype}")
+    if steps < 0:
+        raise ValueError(f"steps must be >= 0, got {steps}")
+    if x.device.type == "cpu":
+        return peak_probe_plain(x, steps, a, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"the peak probe runs on the CPU or a CUDA device, got {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("the peak probe takes a contiguous tensor")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"the peak probe takes fewer than 2^31 elements, got {x.numel()}")
+    lib = _probe_library()
+    out = torch.empty_like(x)
+    f64 = x.dtype == torch.float64
+    fn, scalar = (lib.peak_probe_f64, ctypes.c_double) if f64 else \
+        (lib.peak_probe_f32, ctypes.c_float)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+                 x.numel(), steps, scalar(a), scalar(b), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"peak_probe failed to launch: CUDA error {err}")
+    LAUNCHES["peak_probe"] += 1
+    return out

@@ -96,6 +96,17 @@ class PosdefSolver:
         self.Kf = factor_limbs
         self.L = cholesky(mp.round_to(A, factor_limbs))
 
+    @classmethod
+    def from_parts(cls, A: MP, L: MP, factor_limbs: int) -> "PosdefSolver":
+        """Reassemble from precomputed parts: A and its factor L at
+        factor_limbs limbs (sdpb_tpu/ops/linalg.py:279-290, whose third part,
+        the diagonal reciprocals, this solver does not keep)."""
+        self = cls.__new__(cls)
+        self.A = A
+        self.Kf = factor_limbs
+        self.L = L
+        return self
+
     def solve_lo(self, B_lo: MP) -> MP:
         """A^{-1} B at factor precision."""
         return cholesky_solve(self.L, B_lo)

@@ -129,7 +129,7 @@ def test_scaled_dispatch_launches_or_raises(cuda):
     assert tk.LAUNCHES == {"mp_matmul": 0, "mp_cholesky": 0, "mp_solve_triangular": 0,
                            "mp_matmul_scaled": 1, "mp_cholesky_scaled": 1,
                            "mp_solve_triangular_scaled": 1,
-                           "mp_matmul_wide": 0}
+                           "mp_matmul_wide": 0, "peak_probe": 0}
     wrong_limbs = tmp.MP(a.limbs.double(), a.exp)
     wrong_exp = tmp.MP(a.limbs, a.exp.long())
     classic = tmp.MP(a.limbs.double())
@@ -319,3 +319,61 @@ def test_wide_elementwise_ops_agree_across_devices(cuda, Kw):
         else:
             assert _same(got, want), name
     assert torch.equal(tmp.nearest_double(_on(a, cuda)).cpu(), tmp.nearest_double(a))
+
+
+# ---------------------------------------------------------------------------
+# The peak probe and the per-phase profiler
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_peak_probe_matches_plain_version(cuda, dtype):
+    """The probe on the card bit for bit with its plain version on the card
+    and on the CPU (every multiply and add rounded on its own), an odd
+    element count (a partial last block) and the 512 x 512 tile."""
+    from sdpb_tpu_torch.tools.profile_phases import PROBE_A, PROBE_B
+
+    rng = np.random.default_rng(13)
+    for shape, steps in (((1000,), 333), ((512, 512), 64), ((3,), 0)):
+        x = torch.tensor(rng.uniform(0.5, 2.0, shape), dtype=dtype)
+        tk.reset_launches()
+        got = tk.peak_probe(x.to(cuda), steps, PROBE_A, PROBE_B)
+        assert tk.LAUNCHES["peak_probe"] == 1
+        assert got.dtype == dtype and got.device.type == "cuda"
+        assert torch.equal(got, tk.peak_probe_plain(x.to(cuda), steps, PROBE_A, PROBE_B))
+        assert torch.equal(got.cpu(), tk.peak_probe(x, steps, PROBE_A, PROBE_B))
+    assert tk.LAUNCHES["peak_probe"] == 1
+
+
+def test_peak_probe_raises_on_what_it_cannot_take(cuda):
+    tk.reset_launches()
+    with pytest.raises(TypeError):
+        tk.peak_probe(torch.ones(8, dtype=torch.float16, device=cuda), 2, 1.0, 0.0)
+    with pytest.raises(TypeError):
+        tk.peak_probe(torch.ones(8, dtype=torch.int32, device=cuda), 2, 1.0, 0.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.peak_probe(torch.ones((8, 8), device=cuda).mT[::2], 2, 1.0, 0.0)
+    with pytest.raises(ValueError):
+        tk.peak_probe(torch.ones(8, device=cuda), -1, 1.0, 0.0)
+    assert tk.LAUNCHES["peak_probe"] == 0
+
+
+def test_profiler_runs_on_the_card(cuda, tmp_path, capsys):
+    """The tool's main on the certificate on the card: every phase timed,
+    the peak measured in float64 (classic limbs) by 6 probe launches, the
+    card's name and power limit recorded."""
+    import json
+    from pathlib import Path
+
+    from sdpb_tpu_torch.tools import profile_phases as tpp
+
+    zip_ = Path(__file__).resolve().parents[1] / "fixtures" / "dim2_certificate" / "sdp.zip"
+    out = tmp_path / "phases.json"
+    tk.reset_launches()
+    assert tpp.main(["--fixture", str(zip_), "--scaledLimbs", "0", "--reps", "1",
+                     "--device", "cuda", "--json", str(out)]) == 0
+    rec = json.loads(out.read_text())
+    assert rec["platform"] == "cuda" and rec["card"] and rec["peak_dtype"] == "float64"
+    assert rec["peak_gflops_measured"] > 1000
+    assert tk.LAUNCHES["peak_probe"] == 6
+    assert all(tk.LAUNCHES[tk.counter(n, False)] > 0 for n in tk.KERNEL_NAMES)
+    assert all(r["ms"] > 0 and r["pct_of_peak"] is not None for r in rec["phases"][:-1])

@@ -150,14 +150,16 @@ def test_dispatch_is_by_device_without_fallback():
     tk.mp_matmul(a, a)
     tk.mp_cholesky(tmp.MP(torch.as_tensor(_spd(rng, 2, 3, 2))))
     tk.mp_solve_triangular(a, a)
+    tk.peak_probe(a.limbs, 3, 1.0000001, 1e-7)
     assert tk.LAUNCHES == {"mp_matmul": 0, "mp_cholesky": 0,
                            "mp_solve_triangular": 0, "mp_matmul_scaled": 0,
                            "mp_cholesky_scaled": 0, "mp_solve_triangular_scaled": 0,
-                           "mp_matmul_wide": 0}
+                           "mp_matmul_wide": 0, "peak_probe": 0}
     meta = tmp.MP(torch.empty((2, 2, 3, 3), dtype=torch.float64, device="meta"))
     for call in (lambda: tk.mp_matmul(meta, meta), lambda: tk.mp_cholesky(meta),
                  lambda: tk.mp_solve_triangular(meta, meta),
-                 lambda: tk.mp_matmul(a, meta)):
+                 lambda: tk.mp_matmul(a, meta),
+                 lambda: tk.peak_probe(meta.limbs, 3, 1.0000001, 1e-7)):
         with pytest.raises(ValueError):
             call()
 
