@@ -12,29 +12,36 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      float32;
   4. classic kernels against their plain PyTorch versions at the solve's
      shapes (120 blocks of the ising ladder), bit-identical limbs, spot
-     checks against mpmath, kernel and plain times, bounds;
+     checks against mpmath, kernel and plain times, bounds, and each
+     kernel's share of its bound (bound ms / kernel ms);
   5. the dim-2 certificate SDP (fixtures/dim2_certificate/sdp.zip) solved
      to optimality through the CLI entry point at 150 bits, classic: y*
      must match the independently bisected optimum;
   6. the 120-block ladder fixture at 216 bits, classic, for a bounded
      number of iterations: finite statistics, positive steps, falling mu,
-     seconds per iteration, peak memory, kernel launch counts;
+     seconds per iteration, peak memory, kernel launch counts, the wrapper
+     calls by shape and the device ms per iteration of the GEMM and the
+     triangular solve over those shapes (each shape timed alone);
   7. the scaled kernels against their plain versions at the scaled solve's
-     shapes (limbs and exponents bit-identical), spot checks, times, bounds;
+     shapes (limbs and exponents bit-identical), spot checks, times, bounds,
+     shares of the bound;
   8. the certificate again in the scaled representation, 150 bits (7
      float32 limbs): optimal, y* matches;
   9. the ladder in the scaled representation, 9 float32 limbs (216 bits of
      mantissa), same settings and iterations as phase 6: finite statistics,
-     falling mu, s/iteration, peak memory, launches, and the digits its
-     objectives share with phase 6's classic run;
+     falling mu, s/iteration, peak memory, launches, calls by shape and
+     device ms per iteration as in phase 6, and the digits its objectives
+     share with phase 6's classic run;
  10. the wide (two-word) GEMM against its plain version at the ladder's
      shapes, Kg=9 (the 400-bit contract) and Kg=5 (216 bits): limbs and
-     exponents bit-identical, spot checks against mpmath, times, bounds;
+     exponents bit-identical, spot checks against mpmath, times, bounds,
+     shares of the bound;
  11. the ladder at --precision 400 in the wide representation (2 words x 9
      float32 limbs) and classic (K=8), WIDE_ITERATIONS + 1 iterations each:
      finite statistics, falling mu, out.txt, the wide GEMM and the scaled
-     factor and solve launched, identical step lengths, and the digits the
-     objectives share (at least 70: one 216-bit word holds ~65);
+     factor and solve launched, the wide run's calls by shape and device ms
+     per iteration as in phase 6, identical step lengths, and the digits
+     the objectives share (at least 70: one 216-bit word holds ~65);
  12. the peak probe against its plain version at the 512 x 512 tile,
      float32 and float64, bit for bit at 2048 steps, FMUL/FADD and
      DMUL/DADD in its SASS and no FFMA/DFMA; its time at 65536 steps, the
@@ -43,7 +50,9 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      ladder, --quant 8, Omega 1e4: classic (K=4), scaled (K32=9) and wide
      (K32=17), each record on one line: every phase's time finite and
      positive, the probe and the representation's kernels launched, and
-     the scaled and wide iteration times within 25% of phases 9 and 11's.
+     the scaled and wide iteration times within 25% of the median steady
+     iteration of that representation's ladder solves (phase 9 or 11's,
+     and the same solve run again right before the profile).
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is the kernels' JSON record, and the line before that the card's name
 and power limit.  Without CUDA, or outside a checkout, the script exits
@@ -54,6 +63,7 @@ import io
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -86,7 +96,7 @@ PROBE_KERNEL = ("peak_probe", "sdpb_tpu_torch/csrc/peak_probe.cu",
                 "sdpb_tpu/tools/profile_phases.py:97")
 PROBE_TILE, PROBE_CHECK_STEPS, PROBE_STEPS = (512, 512), 2048, 65536
 # phase 13's profiler runs: (label, --scaledLimbs, --reps)
-PROFILES = (("classic", 0, 2), ("scaled", 9, 2), ("wide", 17, 1))
+PROFILES = (("classic", 0, 2), ("scaled", 9, 2), ("wide", 17, 2))
 # H100 SXM at 700 W (NVIDIA data sheet): non-fused add/mul per second on
 # the CUDA cores (34 and 67 TFLOP/s count a fused multiply-add as two) and
 # device memory bytes per second
@@ -99,6 +109,12 @@ SOLVE_FLAGS = ("--dualityGapThreshold", "1e-12", "--primalErrorThreshold", "1e-1
 LADDER_FLAGS = ("--dualityGapThreshold", "1e-20", "--primalErrorThreshold", "1e-20",
                 "--dualErrorThreshold", "1e-20", "--initialMatrixScalePrimal", "1e4",
                 "--initialMatrixScaleDual", "1e4")
+# the ladder's precision in each representation: 216 bits classic (K=5);
+# --precision 208 scaled, 9 float32 limbs, one word (216 bits of mantissa
+# with the 8 guard bits); the reference's default 400 bits, two words of 9
+LADDER_PREC = {"classic": ("--precision", "216"),
+               "scaled": ("--precision", "208", "--arithmetic", "scaled"),
+               "wide": ("--precision", "400", "--arithmetic", "scaled")}
 
 
 class PhaseError(RuntimeError):
@@ -448,12 +464,19 @@ def kernel_phase(torch, mp, kernels, dev, scaled):
                      f"[{B},{n},{n}]\\[{B},{n},{m}] {'lower' if lower else 'upper'} K={Kf}",
                      err, worst, ms, pms, bound, by))
 
+    _print_rows(rows)
+    return rows
+
+
+def _print_rows(rows):
+    """The kernel rows of phases 4, 7 and 10, each with its share of its
+    bound (bound ms / kernel ms)."""
     print(f"{'kernel':22s} {'shape':40s} {'max|k-p|':>9s} {'vs mpmath':>10s} "
-          f"{'kernel ms':>10s} {'plain ms':>10s} {'bound ms':>10s} bound by")
+          f"{'kernel ms':>10s} {'plain ms':>10s} {'bound ms':>10s} {'of bound':>8s} "
+          f"bound by")
     for name, shape, err, worst, ms, pms, bound, by in rows:
         print(f"{name:22s} {shape:40s} {err:9.1e} {worst:10.2e} {ms:10.3f} "
-              f"{pms:10.1f} {bound:10.4f} {by}")
-    return rows
+              f"{pms:10.1f} {bound:10.4f} {bound / ms:8.1%} {by}")
 
 
 def _wide_operand(rng, shape, Kg, decades):
@@ -508,11 +531,7 @@ def wide_kernel_phase(torch, kernels, dev):
             bound, by = kernel_bound("mp_matmul_wide", (B, M, Kd, N), Kg, True)
             rows.append(("mp_matmul_wide", f"[{B},{M},{Kd}]@[{B},{Kd},{N}] Kg={Kg}",
                          err, float(worst), ms, pms, bound, by))
-    print(f"{'kernel':22s} {'shape':40s} {'max|k-p|':>9s} {'vs mpmath':>10s} "
-          f"{'kernel ms':>10s} {'plain ms':>10s} {'bound ms':>10s} bound by")
-    for name, shape, err, worst, ms, pms, bound, by in rows:
-        print(f"{name:22s} {shape:40s} {err:9.1e} {worst:10.2e} {ms:10.3f} "
-              f"{pms:10.1f} {bound:10.4f} {by}")
+    _print_rows(rows)
     return rows
 
 
@@ -553,6 +572,82 @@ def certificate_phase(torch, kernels, cli, dev, scaled):
     return {"iterations": res.iterations, "seconds": dt, "dy": float(dy)}
 
 
+@contextlib.contextmanager
+def _shape_tally(kernels):
+    """Count the calls of the GEMM and triangular-solve wrappers by
+    (wrapper, representation, limbs, shape of a, shape of b, lower) while
+    the block runs (the solver reaches them as attributes of the kernels
+    module); the wrappers' own launch counters are untouched."""
+    tally = {}
+    saved = {n: getattr(kernels, n) for n in ("mp_matmul", "mp_matmul_wide",
+                                              "mp_solve_triangular")}
+
+    def shim(name, fn):
+        def call(a, b, *rest, **kw):
+            wide = name == "mp_matmul_wide"
+            lower = None
+            if name == "mp_solve_triangular":
+                lower = bool(kw.get("lower", rest[0] if rest else True))
+            key = (name, "wide" if wide else ("scaled" if a.scaled else "classic"),
+                   a.Kg if wide else a.K, tuple(a.shape), tuple(b.shape), lower)
+            tally[key] = tally.get(key, 0) + 1
+            return fn(a, b, *rest, **kw)
+        return call
+
+    for n, fn in saved.items():
+        setattr(kernels, n, shim(n, fn))
+    try:
+        yield tally
+    finally:
+        for n, fn in saved.items():
+            setattr(kernels, n, fn)
+
+
+def _call_label(key):
+    name, rep, K, ash, bsh, lower = key
+    side = "" if lower is None else (" lower" if lower else " upper")
+    op = "@" if lower is None else "\\"
+    return f"{name} {rep} K={K} {list(ash)}{op}{list(bsh)}{side}"
+
+
+def iteration_kernel_ms(torch, mp, kernels, dev, tally, iterations):
+    """Device ms per iteration of each kernel the tally counted: every
+    tallied shape timed on operands from fixed seeds (median of 5 CUDA-event
+    timings after a warm-up), times its calls per iteration, summed per
+    launch counter.  Prints one line per shape."""
+    import numpy as np
+    from sdpb_tpu_torch.ops import mpwide
+    totals = {}
+    for key, count in sorted(tally.items(), key=lambda kv: _call_label(kv[0])):
+        name, rep, K, ash, bsh, lower = key
+        rng = np.random.default_rng(sum(ash) + 7 * sum(bsh) + K)
+        if rep == "wide":
+            a, b = (mpwide.MPW(mp.MP(w.limbs.to(dev), w.exp.to(dev))
+                               for w in _wide_operand(rng, sh, K, 2.0).words)
+                    for sh in (ash, bsh))
+            counter = name
+        else:
+            K64 = -(-(24 * K) // 53) + 1 if rep == "scaled" else K
+            ha, hb = _limbs(rng, ash, K64), _limbs(rng, bsh, K64)
+            if lower is not None:   # a diagonal above its rows' entries
+                idx = np.arange(ash[-1])
+                ha[0][..., idx, idx] += 2 * ash[-1]
+            if rep == "scaled":
+                a, b = (mp.from_parts(*mp.f64_limbs_to_scaled_parts(x, K), dev)
+                        for x in (ha, hb))
+            else:
+                a, b = (mp.MP(torch.as_tensor(x, device=dev)) for x in (ha, hb))
+            counter = kernels.counter(name, rep == "scaled")
+        fn = getattr(kernels, name)
+        ms = _time_ms(torch, (lambda: fn(a, b)) if lower is None else
+                      (lambda: fn(a, b, lower)))
+        per_it = count / iterations
+        totals[counter] = totals.get(counter, 0.0) + per_it * ms
+        print(f"  {_call_label(key)}: {per_it:g} per iteration x {ms:.4f} ms")
+    print("device ms per iteration: " + ", ".join(f"{k} {v:.2f}" for k, v in totals.items()))
+    return totals
+
+
 def _ladder_run(torch, kernels, cli, dev, prec, iterations, check_path):
     """One CLI run of the ladder for iterations + 1 iterations: finite
     statistics, positive steps, falling mu, out.txt written, and every
@@ -564,9 +659,10 @@ def _ladder_run(torch, kernels, cli, dev, prec, iterations, check_path):
         kernels.reset_launches()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.time()
-        res = cli.run(["-s", str(LADDER), "-o", str(Path(tmp) / "out"),
-                       "--device", str(dev), *prec, *LADDER_FLAGS,
-                       "--maxIterations", str(iterations)])
+        with _shape_tally(kernels) as tally:
+            res = cli.run(["-s", str(LADDER), "-o", str(Path(tmp) / "out"),
+                           "--device", str(dev), *prec, *LADDER_FLAGS,
+                           "--maxIterations", str(iterations)])
         wall = time.time() - t0
         launches = dict(kernels.LAUNCHES)
         peak = torch.cuda.max_memory_allocated(dev)
@@ -584,15 +680,19 @@ def _ladder_run(torch, kernels, cli, dev, prec, iterations, check_path):
     mus = [float(host_mpf(st.mu)) for st in hist]
     check(all(b < a for a, b in zip(mus, mus[1:])), f"mu does not fall: {mus}")
     its = res.iteration_seconds
-    steady = sorted(its[1:])[len(its[1:]) // 2] if len(its) > 1 else its[0]
+    steady = statistics.median(its[1:]) if len(its) > 1 else its[0]
     print(f"{' '.join(prec)}: {res.terminate_reason}; {len(hist)} iterations in "
           f"{sum(its):.1f} s (wall {wall:.1f} s incl. reading the zip); first "
-          f"{its[0]:.2f} s, steady median {steady:.3f} s/iteration; peak device memory "
+          f"{its[0]:.2f} s, steady median {steady:.3f} s/iteration (each: "
+          f"{' '.join(f'{t:.2f}' for t in its)}); peak device memory "
           f"{peak / 2**30:.2f} GiB; launches {launches}")
     print(f"mu: {' '.join(f'{m:.3e}' for m in mus)}")
+    print(f"wrapper calls by shape over the {len(hist)} iterations: "
+          + "; ".join(f"{_call_label(k)}: {v}"
+                      for k, v in sorted(tally.items(), key=lambda kv: _call_label(kv[0]))))
     check(all(launches[n] > 0 for n in check_path), f"a kernel did not run: {launches}")
-    return {"launches": launches, "s_per_it": steady, "peak_bytes": peak, "history": hist,
-            "iterations": len(hist)}
+    return {"launches": launches, "s_per_it": steady, "steady_its": list(its[1:]),
+            "peak_bytes": peak, "history": hist, "iterations": len(hist), "tally": tally}
 
 
 def _shared_digits(mine, ref):
@@ -612,18 +712,27 @@ def _shared_digits(mine, ref):
     return digits, same_steps
 
 
+def kernel_path(kernels, label):
+    """The launch counters of the kernels a ladder run in representation
+    `label` must launch (the wide path factors and solves word 0 with the
+    scaled kernels)."""
+    if label == "wide":
+        return ["mp_matmul_wide", "mp_cholesky_scaled", "mp_solve_triangular_scaled"]
+    return [kernels.counter(n, label == "scaled") for n in kernels.KERNEL_NAMES]
+
+
 def ladder_phase(torch, kernels, cli, dev, scaled, classic=None):
+    from sdpb_tpu_torch.ops import mpfloat as mp
+    label = "scaled" if scaled else "classic"
     if scaled:
-        # --precision 208 takes 9 float32 limbs, one scaled word (216 bits
-        # of mantissa, with the 8 guard bits); phase 11 runs two words
         phase(f"9. ising ladder, scaled, 9 float32 limbs (216 bits), "
               f"{LADDER_ITERATIONS} iterations")
-        prec = ["--precision", "208", "--arithmetic", "scaled"]
     else:
         phase(f"6. ising ladder, 120 blocks, 216 bits, {LADDER_ITERATIONS} iterations")
-        prec = ["--precision", "216"]
-    path = [kernels.counter(n, scaled) for n in kernels.KERNEL_NAMES]
-    out = _ladder_run(torch, kernels, cli, dev, prec, LADDER_ITERATIONS, path)
+    out = _ladder_run(torch, kernels, cli, dev, list(LADDER_PREC[label]), LADDER_ITERATIONS,
+                      kernel_path(kernels, label))
+    out["kernel_ms"] = iteration_kernel_ms(torch, mp, kernels, dev, out["tally"],
+                                           out["iterations"])
     if classic is not None:
         digits, same_steps = _shared_digits(out, classic)
         print(f"objectives agree with the classic run to {digits:.1f} significant "
@@ -641,12 +750,13 @@ def wide_ladder_phase(torch, kernels, cli, dev):
     (K=8): identical steps, at least 70 shared digits."""
     phase(f"11. ising ladder at --precision 400: wide (2 words x 9 float32 limbs) "
           f"and classic (K=8), {WIDE_ITERATIONS + 1} iterations each")
-    wide = _ladder_run(torch, kernels, cli, dev, ["--precision", "400", "--arithmetic",
-                                                  "scaled"], WIDE_ITERATIONS,
-                       ["mp_matmul_wide", "mp_cholesky_scaled",
-                        "mp_solve_triangular_scaled"])
+    from sdpb_tpu_torch.ops import mpfloat as mp
+    wide = _ladder_run(torch, kernels, cli, dev, list(LADDER_PREC["wide"]), WIDE_ITERATIONS,
+                       kernel_path(kernels, "wide"))
+    wide["kernel_ms"] = iteration_kernel_ms(torch, mp, kernels, dev, wide["tally"],
+                                            wide["iterations"])
     classic = _ladder_run(torch, kernels, cli, dev, ["--precision", "400"], WIDE_ITERATIONS,
-                          [kernels.counter(n, False) for n in kernels.KERNEL_NAMES])
+                          kernel_path(kernels, "classic"))
     digits, same_steps = _shared_digits(wide, classic)
     print(f"wide objectives agree with classic K=8 to {digits:.1f} significant digits "
           f"over {wide['iterations']} iterations, step lengths identical in {same_steps}; "
@@ -724,18 +834,25 @@ def probe_phase(torch, kernels, dev, smi):
     return rows
 
 
-def profile_phase(torch, kernels, dev, sladder, wladder):
+def profile_phase(torch, kernels, cli, dev, sladder, wladder):
     """Phase 13: the per-phase profiler on the ladder in the three
-    representations; each record printed on one line."""
+    representations; each record printed on one line.  The scaled and the
+    wide profiled iteration is held to the median of every steady
+    iteration (all but the first) of that representation's ladder solves in
+    this run: phase 9's or 11's, and the same solve run again for two
+    iterations right before the profile.  The host's load moves a
+    host-bound iteration by 10-25% within minutes, so one solve iteration
+    against one profiled one is not a fair comparison."""
     phase("13. per-phase profiler on the ladder: classic K=4, scaled K32=9, "
           "wide K32=17 (--quant 8, Omega 1e4)")
     from sdpb_tpu_torch.tools import profile_phases
-    paths = {"classic": [kernels.counter(n, False) for n in kernels.KERNEL_NAMES],
-             "scaled": [kernels.counter(n, True) for n in kernels.KERNEL_NAMES],
-             "wide": ["mp_matmul_wide", "mp_cholesky_scaled", "mp_solve_triangular_scaled"]}
-    records, probe_launches = {}, 0
+    records, solves, probe_launches = {}, {}, 0
     with tempfile.TemporaryDirectory() as tmp:
         for label, limbs, reps in PROFILES:
+            if label != "classic":
+                solves[label] = _ladder_run(torch, kernels, cli, dev,
+                                            list(LADDER_PREC[label]), 1,
+                                            kernel_path(kernels, label))
             out = Path(tmp) / f"{label}.json"
             kernels.reset_launches()
             t0 = time.time()
@@ -755,7 +872,7 @@ def profile_phase(torch, kernels, dev, sladder, wladder):
                   f"profile_phases {label}: a phase time is not finite and positive: {ms}")
             check(launches["peak_probe"] == 6, f"{label}: the probe ran "
                                                f"{launches['peak_probe']} times, not 6")
-            check(all(launches[n] > 0 for n in paths[label]),
+            check(all(launches[n] > 0 for n in kernel_path(kernels, label)),
                   f"profile_phases {label}: a kernel did not run: {launches}")
             probe_launches += launches["peak_probe"]
             records[label] = rec
@@ -775,9 +892,11 @@ def profile_phase(torch, kernels, dev, sladder, wladder):
           f"{records['scaled']['peak_gflops_measured']} float32; "
           f"card {records['scaled']['card']}")
     for lb, run in (("scaled", sladder), ("wide", wladder)):
-        ratio = records[lb]["iteration_ms"] / 1e3 / run["s_per_it"]
-        print(f"{lb} iteration {records[lb]['iteration_ms'] / 1e3:.3f} s against "
-              f"{run['s_per_it']:.3f} s/iteration in the solve: ratio {ratio:.3f}")
+        its = run["steady_its"] + solves[lb]["steady_its"]
+        ratio = records[lb]["iteration_ms"] / 1e3 / statistics.median(its)
+        print(f"{lb} iteration {records[lb]['iteration_ms'] / 1e3:.3f} s against the "
+              f"median {statistics.median(its):.3f} s of the solves' steady iterations "
+              f"({' '.join(f'{t:.2f}' for t in its)}): ratio {ratio:.3f}")
         # the profiler times the solver's own iteration, at the factor limbs
         # its Omega gives; more than 25% away, it timed something else
         check(0.75 <= ratio <= 1.25, f"profile_phases {lb}: iteration {ratio:.3f}x the "
@@ -813,7 +932,7 @@ def main():
     wrows = wide_kernel_phase(torch, kernels, dev)
     wladder = wide_ladder_phase(torch, kernels, cli, dev)
     prows = probe_phase(torch, kernels, dev, smi)
-    profiles, probe_launches = profile_phase(torch, kernels, dev, sladder, wladder)
+    profiles, probe_launches = profile_phase(torch, kernels, cli, dev, sladder, wladder)
     check("jax" not in sys.modules, "the port imported jax")
     check(not any(m == "sdpb_tpu" or m.startswith("sdpb_tpu.") for m in sys.modules),
           "the port imported the JAX package")

@@ -1,24 +1,27 @@
 // Two-word (wide) MP arithmetic inside the CUDA kernels (namespace mpw): the
 // compact ops of ops/mpwide_kernel.py (add_st_c, mul_st_c, add_full_c,
-// mul_full_c, wfma_acc_c, wnormalize_c), operation for operation, over the
-// scaled words of mp_scaled.cuh (SV<K>, pow2f, normalize, EXP_ZERO).
+// mul_full_c, wfma_term_c, wacc_c, wnormalize_c), operation for operation,
+// over the scaled words of mp_scaled.cuh (SV<K>, pow2f, normalize, EXP_ZERO).
 //
 // A wide value is a pair of scaled words (w0, w1) with |w1| <~ 2^-(24K) |w0|.
-// Each op builds its row stack in a per-thread scratch array S of
-// ROWS = 4K^2 + K + 2 floats (plus K^2 ints of placement exponents in D),
-// laid out so that every distillation sweep runs over contiguous rows in the
-// plain version's logical order:
+// Each op builds a row stack, laid out so that every distillation sweep
+// runs over contiguous rows in the plain version's logical order:
 //   add_st     [0, 2K) interleaved aligned limbs, 2 zero rows
-//   mul_st     [0, n_mul) plan rows, 2 zero rows; products and errors at
-//              [n_mul + 2, n_mul + 2 + 2K^2)
 //   add_full   [0, 2K) hi stack; lo stack = [K, 5K + 2): residual, spill,
 //              interleaved routed lo limbs, 2 zero rows
+//   mul_st     [0, n_mul) plan rows, 2 zero rows; products and errors at
+//              [n_mul + 2, n_mul + 2 + 2K^2)
 //   mul_full   [0, 2K^2) hi stack in plan order; spill [2K^2, 2K^2 + K);
 //              2 zero rows; products and errors at slot + 2K^2 + K + 2, each
 //              replaced in place by its routed lo part; lo stack =
 //              [K, 4K^2 + K + 2): residual, spill, zeros, slots
-// The sweeps are runtime loops (#pragma unroll 1), which bounds the compile
-// time; the scratch lives in local memory.
+// The sweeps of a stack run as one register wavefront (sweeps below), which
+// reads each row once.  The stacks of add_st and add_full (at most 5K + 2
+// rows) are local arrays with every index known at compile time, so they
+// live in registers; those of mul_st and mul_full share a per-thread
+// scratch array S of ROWS = 4K^2 + K + 2 floats (plus K^2 ints of
+// placement exponents in D) in local memory, their row loops runtime loops
+// (#pragma unroll 1), which bounds the compile time.
 //
 // Bit-exactness with the plain version rests on the build rules of mp.cuh
 // (-fmad=false -ftz=false) and on two details:
@@ -133,36 +136,61 @@ __device__ __forceinline__ float lift(float x, int p) {
   return sign * mant * pow2f(p - 149);
 }
 
-// K carry-chain extraction sweeps over x[0, m); with CHAIN the residue rows
-// K.. are then chain-summed into x[K].
-template <bool CHAIN>
-__device__ __forceinline__ void sweeps(float* x, int m, int K) {
-  const int ns = K < m - 1 ? K : m - 1;
-#pragma unroll 1
-  for (int k = 0; k < ns; ++k) {
-    float carry = x[m - 1];
-#pragma unroll 1
-    for (int i = m - 2; i >= k; --i) {
-      float s, e;
-      mpk::two_sum(x[i], carry, s, e);
-      x[i + 1] = e;
-      carry = s;
+// K carry-chain extraction sweeps over x[0, m) (m >= K + 1): sweep k runs
+// i = m-2 .. k with (carry, x[i+1]) = two_sum(x[i], carry) from carry =
+// x[m-1], then x[k] = carry; with CHAIN the residue rows K.. are then
+// chain-summed into x[K] (and rows K+1.. are left as they were).
+//
+// The sweeps run as one register wavefront over the rows, with the same
+// TwoSums on the same values: sweep k's step at row j+k reads only what
+// sweep k-1 wrote down to row j+k-1, so at each row j (descending) the
+// value read passes through the K sweeps in turn, each holding its carry
+// in a register.  Each row is read once, and written once (the residual
+// rows K.., without CHAIN); the chain tail sums the last sweep's outputs
+// in the order they leave it.  M > 0 is m known at compile time: the
+// loops unroll and a row stack in a local array stays in registers.
+template <int K, bool CHAIN, int M>
+__device__ __forceinline__ void sweeps(float* x, int m) {
+  float c[K];
+  float chain = 0.0f;
+  auto row = [&](int j) {
+    float v = x[j];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int r = j + k;  // the row sweep k is at
+      if (r < m - 1) {
+        float s, e;
+        mpk::two_sum(v, c[k], s, e);
+        c[k] = s;
+        v = e;  // row r + 1 after sweep k: sweep k + 1's input
+      } else if (r == m - 1) {
+        c[k] = v;  // sweep k starts
+      }
     }
-    x[k] = carry;
-  }
-  if (CHAIN && m - 1 > K) {
-    float s = x[m - 1];
+    if (j <= m - 1 - K) {  // v is the final row j + K
+      if (CHAIN)
+        chain = j == m - 1 - K ? v : chain + v;
+      else
+        x[j + K] = v;
+    }
+  };
+  if constexpr (M > 0) {
+#pragma unroll
+    for (int j = M - 1; j >= 0; --j) row(j);
+  } else {
 #pragma unroll 1
-    for (int i = m - 2; i >= K; --i) s = s + x[i];
-    x[K] = s;
+    for (int j = m - 1; j >= 0; --j) row(j);
   }
+#pragma unroll
+  for (int k = 0; k < K; ++k) x[k] = c[k];
+  if (CHAIN) x[K] = chain;
 }
 
 // Sweeps with the chain tail, quick-TwoSum compaction of rows 0..K forward
 // and back, normalize at exponent e (renorm_st).
-template <int K>
+template <int K, int M>
 __device__ __forceinline__ SV<K> finish(float* x, int m, int e) {
-  sweeps<true>(x, m, K);
+  sweeps<K, true, M>(x, m);
   float xs[K + 1];
 #pragma unroll
   for (int i = 0; i <= K; ++i) xs[i] = x[i];
@@ -178,10 +206,11 @@ __device__ __forceinline__ SV<K> finish(float* x, int m, int e) {
   return r;
 }
 
-// Aligned scaled add (add_st_c).
+// Aligned scaled add (add_st_c); its 2K + 2 rows in registers.
 template <int K>
-__device__ SV<K> add_st(const SV<K>& a, const SV<K>& b, float* S) {
+__device__ SV<K> add_st(const SV<K>& a, const SV<K>& b) {
   const int e = a.e > b.e ? a.e : b.e;
+  float S[2 * K + 2];
 #pragma unroll
   for (int i = 0; i < K; ++i) {
     S[2 * i] = scale1(a.x[i], a.e - e);
@@ -189,7 +218,7 @@ __device__ SV<K> add_st(const SV<K>& a, const SV<K>& b, float* S) {
   }
   S[2 * K] = 0.0f;
   S[2 * K + 1] = 0.0f;
-  return finish<K>(S, 2 * K + 2, e);
+  return finish<K, 2 * K + 2>(S, 2 * K + 2, e);
 }
 
 // Products and Dekker errors of two limb vectors into PE[slot].
@@ -238,7 +267,7 @@ __device__ SV<K> mul_st(const SV<K>& a, const SV<K>& b, float* S) {
   }
   S[NM] = 0.0f;
   S[NM + 1] = 0.0f;
-  return finish<K>(S, NM + 2, a.e + b.e + C);
+  return finish<K, 0>(S, NM + 2, a.e + b.e + C);
 }
 
 // Compaction of the K extracted rows into the hi limbs; limbs with exponent
@@ -264,11 +293,12 @@ __device__ __forceinline__ SV<K> extract_hi(const float* x, int e, float* spill)
   return r;
 }
 
-// Word TwoSum hi + lo == a + b (add_full_c).
+// Word TwoSum hi + lo == a + b (add_full_c); its 5K + 2 rows in registers.
 template <int K>
-__device__ void add_full(const SV<K>& a, const SV<K>& b, SV<K>& hi, SV<K>& lo, float* S) {
+__device__ void add_full(const SV<K>& a, const SV<K>& b, SV<K>& hi, SV<K>& lo) {
   const int e_hi = a.e > b.e ? a.e : b.e;
   const int da = a.e - e_hi, db = b.e - e_hi;
+  float S[5 * K + 2];
   float* LO = S + 3 * K;  // interleaved routed lo limbs
 #pragma unroll
   for (int i = 0; i < K; ++i) {
@@ -279,13 +309,13 @@ __device__ void add_full(const SV<K>& a, const SV<K>& b, SV<K>& hi, SV<K>& lo, f
     LO[2 * i] = scale1(ka ? 0.0f : a.x[i], da + 24 * K);
     LO[2 * i + 1] = scale1(kb ? 0.0f : b.x[i], db + 24 * K);
   }
-  sweeps<false>(S, 2 * K, K);
+  sweeps<K, false, 2 * K>(S, 2 * K);
   hi = extract_hi<K>(S, e_hi, S + 2 * K);
 #pragma unroll
   for (int i = K; i < 2 * K; ++i) S[i] = lift(S[i], 24 * K);
   S[5 * K] = 0.0f;
   S[5 * K + 1] = 0.0f;
-  lo = finish<K>(S + K, 4 * K + 2, e_hi - 24 * K);
+  lo = finish<K, 4 * K + 2>(S + K, 4 * K + 2, e_hi - 24 * K);
 }
 
 // Exact word product hi + lo == a * b (mul_full_c).
@@ -321,37 +351,43 @@ __device__ void mul_full(const SV<K>& a, const SV<K>& b, SV<K>& hi, SV<K>& lo, f
     S[j] = scale1(keep ? t : 0.0f, d);
     PE[i] = scale1(keep ? 0.0f : t, d + 24 * K);
   }
-  sweeps<false>(S, NF, K);
+  sweeps<K, false, 0>(S, NF);
   const int e_hi = a.e + b.e + C;
   hi = extract_hi<K>(S, e_hi, S + NF);
 #pragma unroll 1
   for (int i = K; i < NF; ++i) S[i] = lift(S[i], 24 * K);
   S[NF + K] = 0.0f;
   S[NF + K + 1] = 0.0f;
-  lo = finish<K>(S + K, 2 * NF + 2, e_hi - 24 * K);
+  lo = finish<K, 0>(S + K, 2 * NF + 2, e_hi - 24 * K);
 }
 
-// acc + a b with the cheap carry (wfma_acc_c); acc = (h, l) in place.
+// The accumulator-free part of acc + a b (wfma_term_c): the exact hi
+// product p0 and the carry cp = (a0 b1 + a1 b0) + p1.
 template <int K>
-__device__ void fma_acc(SV<K>& h, SV<K>& l, const SV<K>& a0, const SV<K>& a1,
-                        const SV<K>& b0, const SV<K>& b1, float* S, int* D) {
-  SV<K> p0, p1, e;
+__device__ void fma_term(const SV<K>& a0, const SV<K>& a1, const SV<K>& b0,
+                         const SV<K>& b1, SV<K>& p0, SV<K>& cp, float* S, int* D) {
+  SV<K> p1;
   mul_full<K>(a0, b0, p0, p1, S, D);
   const SV<K> c01 = mul_st<K>(a0, b1, S);
   const SV<K> c10 = mul_st<K>(a1, b0, S);
-  const SV<K> cross = add_st<K>(c01, c10, S);
+  cp = add_st<K>(add_st<K>(c01, c10), p1);
+}
+
+// The accumulate part (wacc_c): (h, l) += (p0, cp) in place, the hi
+// product through one word TwoSum, the rest through truncated adds.
+template <int K>
+__device__ void fma_acc(SV<K>& h, SV<K>& l, const SV<K>& p0, const SV<K>& cp) {
   const SV<K> h0 = h;
-  add_full<K>(h0, p0, h, e, S);
-  const SV<K> le = add_st<K>(l, e, S);
-  const SV<K> cp = add_st<K>(cross, p1, S);
-  l = add_st<K>(le, cp, S);
+  SV<K> e;
+  add_full<K>(h0, p0, h, e);
+  l = add_st<K>(add_st<K>(l, e), cp);
 }
 
 // Re-establish the two-word invariant (wnormalize_c).
 template <int K>
-__device__ void normalize(SV<K>& h, SV<K>& l, float* S) {
+__device__ void normalize(SV<K>& h, SV<K>& l) {
   const SV<K> a = h, b = l;
-  add_full<K>(a, b, h, l, S);
+  add_full<K>(a, b, h, l);
 }
 
 }  // namespace mpw

@@ -195,7 +195,7 @@ def _library(K: int, scaled) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(K, scaled)))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         if wide:
-            lib.mp_wide_matmul_launch.argtypes = [vp] * 12 + [ci] * 4 + [vp]
+            lib.mp_wide_matmul_launch.argtypes = [vp] * 16 + [ci] * 5 + [vp]
             lib.mp_wide_matmul_launch.restype = ci
         else:
             lib.mp_matmul_launch.argtypes = [vp] * 6 + [ci] * 4 + [vp]
@@ -354,19 +354,43 @@ def _canon_wide_pair(a: MPW, b: MPW):
     return MPW(ca), MPW(cb), lambda r: MPW(u(w) for u, w in zip(unf, r.words))
 
 
+# Terms (b, m, t, n) that the wide GEMM holds at once: it runs over t in
+# chunks of at most max(1, budget // (B M N)) values, so the kernel's term
+# scratch (2 (4 Kg + 4) bytes a term: at most 168 MB at Kg = 9, or B M N
+# terms where that is more) and the plain version's row stacks (~1.4 KB a
+# term at Kg = 9: 88 MB a stack, or B M N terms' worth) stay bounded
+# whatever Kd is.
+WIDE_TERMS = 1 << 21
+WIDE_PLAIN_TERMS = 1 << 16
+
+
+def wide_chunk(B: int, M: int, Kd: int, N: int, budget: int) -> int:
+    """Values of t per chunk of the wide GEMM (at least 1)."""
+    return max(1, min(Kd, budget // max(1, B * M * N)))
+
+
 def mp_matmul_wide_plain(a: MPW, b: MPW) -> MPW:
     """Plain version of the wide GEMM on two-word operands [Kg,B,M,Kd] x
-    [Kg,B,Kd,N]: the contraction term by term through the cheap-carry
-    accumulate wfma_acc_c from a zero accumulator, then wnormalize_c (the
-    Pallas kernel's chunk = 1 order)."""
+    [Kg,B,Kd,N], in the kernel's two passes over chunks of t: the
+    accumulator-free part wfma_term_c of every term of a chunk in one
+    batched call, then per output the accumulate part wacc_c over the
+    chunk's t in order, from a zero accumulator carried across the chunks;
+    at the end wnormalize_c.  The same operations on the same operands as
+    the one-pass chain of wfma_acc_c (the Pallas kernel's chunk = 1 order),
+    so the same bits."""
     Kg = a.Kg
     _, B, M, Kd = a.words[0].limbs.shape
     N = b.words[0].limbs.shape[-1]
     acc = wk.wzeros((B, M, N), Kg, a.device)
-    for t in range(Kd):
-        wa = tuple((w.limbs[..., t:t + 1], w.exp[..., t:t + 1]) for w in a.words)
-        wb = tuple((w.limbs[:, :, t:t + 1, :], w.exp[:, t:t + 1, :]) for w in b.words)
-        acc = wk.wfma_acc_c(acc, wa, wb, Kg)
+    tc = wide_chunk(B, M, Kd, N, WIDE_PLAIN_TERMS)
+    for t0 in range(0, Kd, tc):
+        s = slice(t0, t0 + tc)
+        wa = tuple((w.limbs[..., s, None], w.exp[..., s, None]) for w in a.words)
+        wb = tuple((w.limbs[:, :, None, s], w.exp[:, None, s]) for w in b.words)
+        (p0l, p0e), (cpl, cpe) = wk.wfma_term_c(wa, wb, Kg)       # [Kg,B,M,tc,N]
+        for t in range(p0e.shape[-2]):
+            acc = wk.wacc_c(acc, (p0l[..., t, :], p0e[..., t, :]),
+                            (cpl[..., t, :], cpe[..., t, :]), Kg)
     return MPW(MP(*w) for w in wk.wnormalize_c(acc, Kg))
 
 
@@ -389,8 +413,13 @@ def mp_matmul_wide(a: MPW, b: MPW) -> MPW:
     N = b4.words[0].limbs.shape[-1]
     out = [_empty((B, M, N), Kg, True, a4.device) for _ in range(2)]
     if out[0].limbs.numel():
-        ptrs = [p for w in (*a4.words, *b4.words, *out) for p in _parts(w)]
-        _launch("mp_wide_matmul_launch", Kg, WIDE, a4.device, ptrs, (B, M, Kd, N))
+        # the (p0, cp) of one chunk's terms, written by the kernel's first
+        # pass and read by its second
+        tc = wide_chunk(B, M, Kd, N, WIDE_TERMS)
+        scratch = [_empty((B * M * min(tc, Kd) * N,), Kg, True, a4.device)
+                   for _ in range(2)]
+        ptrs = [p for w in (*a4.words, *b4.words, *out, *scratch) for p in _parts(w)]
+        _launch("mp_wide_matmul_launch", Kg, WIDE, a4.device, ptrs, (B, M, Kd, N, tc))
         LAUNCHES["mp_matmul_wide"] += 1
     return unflatten(MPW(out))
 
@@ -489,6 +518,8 @@ def mp_solve_triangular(t: MP, b: MP, lower: bool = True) -> MP:
     K, B, n, m = b4.limbs.shape
     X = _empty((B, n, m), K, b4.scaled, b4.device)
     if X.limbs.numel():
+        # the residual and the reciprocals, where they do not fit in shared
+        # memory
         resid = _empty((B, n, m), K, b4.scaled, b4.device)
         dinv = _empty((B, n), K, b4.scaled, b4.device)
         _launch("mp_trsm_launch", K, b4.scaled, b4.device,

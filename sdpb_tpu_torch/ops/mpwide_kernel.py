@@ -2,7 +2,9 @@
 operation order: the port of the compact ops of
 sdpb_tpu/ops/mpwide_kernel.py:410-734 (add_st_c, mul_st_c, add_full_c,
 mul_full_c, wfma_acc_c, wnormalize_c), which csrc/mp_wide.cuh performs
-operation for operation.  kernels.mp_matmul_wide_plain runs it.
+operation for operation.  wfma_acc_c is split into its accumulator-free
+part wfma_term_c and its accumulate part wacc_c, the kernel's two passes;
+kernels.mp_matmul_wide_plain runs them.
 
 A value here is an SVal pair (float32 limbs [K, *shape], int32 exp
 [*shape]); a wide value a WVal pair (w0, w1) of SVals with
@@ -65,12 +67,6 @@ def plan_tables(K: int):
     ints = np.concatenate([np.asarray([len(full), len(idx)], np.int32),
                            full.astype(np.int32), idx.astype(np.int32)])
     return ints, np.stack([f1, f2], 0)
-
-
-def rows_for(K: int) -> int:
-    """Float32 scratch rows per output element of the kernel (4K^2 + K + 2;
-    plus K^2 int32 placement exponents)."""
-    return 4 * K * K + K + 2
 
 
 def _mul_pow2_lift(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -231,16 +227,31 @@ def mul_full_c(a: SVal, b: SVal, K: int) -> Tuple[SVal, SVal]:
     return hi, _finish_renorm(lo_rows, K, exp_hi - 24 * K)
 
 
+def wfma_term_c(a: WVal, b: WVal, K: int) -> Tuple[SVal, SVal]:
+    """The accumulator-free part of wfma_acc_c: the exact hi product p0 and
+    the carry cp = (a0 b1 + a1 b0) + p1 of one term a b.  Every term of a
+    contraction is independent of the others, so the GEMM computes them all
+    at once."""
+    p0, p1 = mul_full_c(a[0], b[0], K)
+    cross = add_st_c(mul_st_c(a[0], b[1], K), mul_st_c(a[1], b[0], K), K)
+    return p0, add_st_c(cross, p1, K)
+
+
+def wacc_c(acc: WVal, p0: SVal, cp: SVal, K: int) -> WVal:
+    """The accumulate part of wfma_acc_c: acc + (p0, cp), the hi product
+    through one word TwoSum, the rest through truncated adds."""
+    h, e = add_full_c(acc[0], p0, K)
+    return h, add_st_c(add_st_c(acc[1], e, K), cp, K)
+
+
 def wfma_acc_c(acc: WVal, a: WVal, b: WVal, K: int) -> WVal:
     """acc + a b with the cheap carry of mpwide_kernel.py:389-401: the hi
     product accumulates through one word TwoSum, everything at the
     2^-(24K) level through truncated adds (the lo word may grow a few bits
-    past its rung until wnormalize_c)."""
-    p0, p1 = mul_full_c(a[0], b[0], K)
-    cross = add_st_c(mul_st_c(a[0], b[1], K), mul_st_c(a[1], b[0], K), K)
-    h, e = add_full_c(acc[0], p0, K)
-    l = add_st_c(add_st_c(acc[1], e, K), add_st_c(cross, p1, K), K)
-    return h, l
+    past its rung until wnormalize_c).  wacc_c of wfma_term_c: the same
+    operations on the same operands."""
+    p0, cp = wfma_term_c(a, b, K)
+    return wacc_c(acc, p0, cp, K)
 
 
 def wnormalize_c(a: WVal, K: int) -> WVal:

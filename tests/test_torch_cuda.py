@@ -236,6 +236,69 @@ def test_solver_on_card_follows_cpu_run(cuda, scaled_limbs):
 
 
 # ---------------------------------------------------------------------------
+# The triangular solve at edge shapes: the kernel keeps the reciprocals,
+# x_i, the residual and T's triangle in shared memory where all four fit,
+# and reads all four through L2 (the wrapper's scratch, X, T) where they do
+# not
+
+
+TRSM_NS = (1, 2, 31, 32, 33, 57, 64, 65, 130)
+# (m, B) per n: one column, the ladder's 15 columns over 120 blocks, more
+# columns than a block has warps; B = 133 is more blocks than SMs
+TRSM_MB = ((1, 133), (15, 120), (33, 1))
+
+
+def _trsm_operands(rng, B, n, m, K, scaled):
+    """A triangular solve's T [B,n,n] (its diagonal above its rows' other
+    entries) and right-hand side [B,n,m], as parts."""
+    if scaled:
+        t = rand_scaled(rng, (B, n, n), K, decades=2.0)
+        idx = np.arange(n)
+        t[1][:, idx, idx] += 4      # a diagonal above its rows' entries
+        return t, rand_scaled(rng, (B, n, m), K, decades=2.0)
+    t = rand_limbs(rng, (B, n, n), K)
+    t[0][:, np.arange(n), np.arange(n)] += n * np.sign(t[0][:, np.arange(n), np.arange(n)])
+    return t, rand_limbs(rng, (B, n, m), K)
+
+
+def _trsm_matches(cuda, t, b, scaled, label):
+    for lower in (True, False):
+        tk.reset_launches()
+        X = tk.mp_solve_triangular(T(t, cuda), T(b, cuda), lower)
+        assert tk.LAUNCHES[tk.counter("mp_solve_triangular", scaled)] == 1
+        want = tk.mp_solve_triangular_plain(T(t, cuda), T(b, cuda), lower)
+        assert _same(X, want), (label, lower)
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("n", TRSM_NS)
+def test_trsm_kernel_matches_plain_version_at_edge_shapes(cuda, n, scaled):
+    """Lower and upper, classic K=4 and scaled K=8 (the ladder's factor
+    limbs): the kernel bit for bit with its plain version on the card.  At
+    n = 130 (T's triangle 8515 elements, 272 KB classic, 306 KB scaled)
+    nothing is in shared memory; at every other n, as at the ladder's
+    shapes (n <= 57, m <= 38), everything is."""
+    K = 8 if scaled else 4
+    rng = np.random.default_rng(500 + n + 1000 * scaled)
+    for m, B in TRSM_MB:
+        t, b = _trsm_operands(rng, B, n, m, K, scaled)
+        _trsm_matches(cuda, t, b, scaled, (m, B))
+
+
+@pytest.mark.parametrize("scaled,K,n,m", [(False, 4, 2, 7300), (False, 8, 3, 3700),
+                                          (True, 9, 3, 5900)])
+def test_trsm_kernel_past_shared_memory(cuda, scaled, K, n, m):
+    """Shapes whose reciprocals and x_i alone, n + m elements, overflow the
+    H100's 227 KB of shared memory a block (233-237 KB here): the kernel
+    solves them through L2, bit for bit with its plain version, with one
+    batch element.  Few pivots: a block runs one batch element's whole
+    solve on one SM."""
+    rng = np.random.default_rng(700 + n + m + scaled)
+    t, b = _trsm_operands(rng, 1, n, m, K, scaled)
+    _trsm_matches(cuda, t, b, scaled, (n, m))
+
+
+# ---------------------------------------------------------------------------
 # The wide (two-word) GEMM and the wide elementwise ops
 
 
@@ -248,6 +311,16 @@ def _wide(rng, shape, K, decades=3):
     vals = rand_wide_vals(rng, n, 24 * K, decades)
     return tmw.wide_parts_to_mp(
         tmw.f64_limbs_to_wide_parts(mpf_to_f64_limbs(vals, shape, 24 * K), K), "cpu")
+
+
+def _wide_np(rng, shape, Kg, decades=2.0):
+    """A random MPW of 2 Kg limbs (CPU) from float64 limb stacks with fresh
+    bits in every limb (past the 48 Kg bits the two words hold), staged
+    exactly; numpy only, so large operands are cheap."""
+    from sdpb_tpu_torch.ops import mpwide as tmw
+    K64 = -(-(48 * Kg) // 53) + 2
+    l64 = rand_limbs(rng, shape, K64, spread=decades)
+    return tmw.wide_parts_to_mp(tmw.f64_limbs_to_wide_parts(l64, 2 * Kg), "cpu")
 
 
 def _on(x, device):
@@ -296,6 +369,72 @@ def test_wide_dispatch_raises_on_what_the_kernel_cannot_take(cuda):
     with pytest.raises(TypeError):
         tk.mp_matmul_wide(tmw.MPW(tmp.MP(w.limbs.double(), w.exp) for w in a.words), a)
     assert tk.LAUNCHES["mp_matmul_wide"] == 0
+
+
+@pytest.mark.parametrize("Kd", [1, 2, 20, 57])
+@pytest.mark.parametrize("Kg", [3, 5, 9])
+def test_wide_kernel_matches_plain_version_at_edge_shapes(cuda, Kg, Kd, monkeypatch):
+    """The two-pass wide GEMM bit for bit with its plain version on the
+    card at M, N in {1, 15, 33} and a broadcast batch."""
+    from sdpb_tpu_torch.ops import mpwide as tmw
+    from torch_parity import small_wide_config
+
+    if Kg == 3:
+        monkeypatch.setattr(tmw, "wide_config", small_wide_config)
+    rng = np.random.default_rng(600 + 10 * Kg + Kd)
+    for M, N, B in ((1, 33, 2), (15, 1, 3), (33, 15, 1)):
+        a = _wide_np(rng, (B, M, Kd), Kg)
+        b = _wide_np(rng, (1, Kd, N), Kg)
+        tk.reset_launches()
+        out = tk.mp_matmul_wide(_on(a, cuda), _on(b, cuda))
+        assert tk.LAUNCHES["mp_matmul_wide"] == 1
+        a4, b4, unflatten = tk._canon_wide_pair(_on(a, cuda), _on(b, cuda))
+        assert _same_wide(out, unflatten(tk.mp_matmul_wide_plain(a4, b4))), (M, N, B)
+
+
+@pytest.mark.parametrize("Kg", [5, 9])
+def test_wide_kernel_in_chunks_of_t(cuda, Kg, monkeypatch):
+    """A term budget of 2.5 B M N terms: the kernel runs Kd = 7 in chunks
+    of 2, 2, 2 and 1 values of t, the accumulator carried through the
+    output between them, and the plain version in chunks of 1; bit for bit
+    with each other and with the whole contraction in one chunk."""
+    rng = np.random.default_rng(650 + Kg)
+    B, M, Kd, N = 3, 5, 7, 4
+    a, b = _wide_np(rng, (B, M, Kd), Kg), _wide_np(rng, (B, Kd, N), Kg)
+    whole = tk.mp_matmul_wide(_on(a, cuda), _on(b, cuda))
+    monkeypatch.setattr(tk, "WIDE_TERMS", 5 * B * M * N // 2)
+    monkeypatch.setattr(tk, "WIDE_PLAIN_TERMS", B * M * N)
+    assert tk.wide_chunk(B, M, Kd, N, tk.WIDE_TERMS) == 2
+    tk.reset_launches()
+    out = tk.mp_matmul_wide(_on(a, cuda), _on(b, cuda))
+    assert tk.LAUNCHES["mp_matmul_wide"] == 1
+    assert _same_wide(out, whole)
+    assert _same_wide(out, tk.mp_matmul_wide_plain(_on(a, cuda), _on(b, cuda)))
+
+
+@pytest.mark.parametrize("Kg", [3, 5, 9])
+def test_wide_kernel_spill_case(cuda, Kg, monkeypatch):
+    """The inputs of test_torch_wide_kernel.py::test_spill_case_against_mpmath
+    (word-0 content spread wider than a word): kernel and plain version
+    bit for bit on the card, and on the CPU."""
+    import mpmath
+    from sdpb_tpu_torch.ops import mpwide as tmw
+    from torch_parity import mpf_to_f64_limbs, small_wide_config
+
+    if Kg == 3:
+        monkeypatch.setattr(tmw, "wide_config", small_wide_config)
+    K = 2 * Kg
+    with mpmath.workprec(24 * K + 200):
+        va = [mpmath.mpf(3) / 7 + mpmath.mpf(5) / 11 * mpmath.mpf(2) ** -100]
+        vb = [mpmath.mpf(1) / 3 + mpmath.mpf(2) ** -90 / 7]
+
+    def wide(vals, shape):
+        return tmw.wide_parts_to_mp(
+            tmw.f64_limbs_to_wide_parts(mpf_to_f64_limbs(vals, shape, 24 * K), K), "cpu")
+
+    a, b = wide(va, (1, 1, 1)), wide(vb, (1, 1))
+    out = tk.mp_matmul_wide(_on(a, cuda), _on(b, cuda))
+    assert _same_wide(out, tk.mp_matmul_wide(a, b))
 
 
 @pytest.mark.parametrize("Kw", [10, 18])

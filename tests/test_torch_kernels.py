@@ -141,6 +141,30 @@ def test_scaled_trsm_plain_matches_pallas(K):
                                                      interpret=True)), lower
 
 
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("lower", [True, False])
+def test_trsm_plain_column_by_column_is_the_whole_solve(scaled, lower):
+    """Each column of X = T^{-1} B depends on T and its own column of B
+    alone: the plain solve run one column at a time (m = 1) gives the whole
+    solve's bits, limbs and exponents: the columns may be solved in any
+    grouping, as the kernel deals the entries of a pivot to its threads."""
+    rng = np.random.default_rng(70 + 2 * scaled + lower)
+    K, B, n, m = 3, 2, 7, 4
+    if scaled:
+        L = tk.mp_cholesky(T(_spd_scaled(rng, B, n, K, decades=4.0)))
+        Bm = T(rand_scaled(rng, (B, n, m), K, decades=4.0))
+    else:
+        L = tk.mp_cholesky(T(_spd(rng, B, n, K)))
+        Bm = T(rand_limbs(rng, (B, n, m), K))
+    t = L if lower else tmp.MP(L.limbs.mT.contiguous(),
+                               None if L.exp is None else L.exp.mT.contiguous())
+    whole = tk.mp_solve_triangular_plain(t, Bm, lower)
+    cols = [tk.mp_solve_triangular_plain(t, Bm[..., c:c + 1], lower) for c in range(m)]
+    assert torch.equal(whole.limbs, torch.cat([c.limbs for c in cols], -1))
+    if scaled:
+        assert torch.equal(whole.exp, torch.cat([c.exp for c in cols], -1))
+
+
 def test_dispatch_is_by_device_without_fallback():
     """CPU operands run the plain version and launch nothing; operands on
     any other non-CUDA device, or split across devices, raise."""

@@ -31,7 +31,8 @@ import jax
 import jax.numpy as jnp
 
 from sdpb_tpu.ops import mpwide as jmw, mpwide_kernel as jwk
-from sdpb_tpu_torch.ops import kernels as tk, mpwide as tmw, mpwide_kernel as twk
+from sdpb_tpu_torch.ops import (kernels as tk, mpfloat as tmp, mpwide as tmw,
+                                mpwide_kernel as twk)
 
 from torch_parity import (max_rel_bits, mpf_to_f64_limbs, rand_scaled, rand_wide_vals,
                           same_wide, small_wide_config, wide_parts_of, wide_to_mpf)
@@ -141,6 +142,55 @@ def test_plain_gemm_matches_jax_list_form(small):
         want = [mpmath.fsum(ha[i, m, t] * hb[t, n] for t in range(Kd))
                 for i in range(B) for m in range(M) for n in range(N)]
     assert max_rel_bits(mine, want, PREC) < -(PREC - 26)
+
+
+def _one_pass(a4, b4, K):
+    """The wide GEMM as the one-pass chain of wfma_acc_c over t from a zero
+    accumulator, then wnormalize_c."""
+    _, B, M, Kd = a4.words[0].limbs.shape
+    acc = twk.wzeros((B, M, b4.words[0].limbs.shape[-1]), K, "cpu")
+    for t in range(Kd):
+        at = tuple((w.limbs[..., t:t + 1], w.exp[..., t:t + 1]) for w in a4.words)
+        bt = tuple((w.limbs[:, :, t:t + 1, :], w.exp[:, t:t + 1, :]) for w in b4.words)
+        acc = twk.wfma_acc_c(acc, at, bt, K)
+    return tmw.MPW(tmp.MP(*w) for w in twk.wnormalize_c(acc, K))
+
+
+def _two_pass_operands(rng, Kw, Kd, B=2, M=3, N=2):
+    """Operands [B,M,Kd] and [1,Kd,N] (a broadcast batch), canonicalised."""
+    prec = 24 * Kw
+    a = _wide(rand_wide_vals(rng, B * M * Kd, prec, 3), (B, M, Kd), Kw)
+    b = _wide(rand_wide_vals(rng, Kd * N, prec, 3), (1, Kd, N), Kw)
+    a4, b4, _ = tk._canon_wide_pair(a, b)
+    assert a4.Kg == Kw // 2 and b4.words[0].limbs.shape == (Kw // 2, B, Kd, N)
+    return a4, b4
+
+
+@pytest.mark.parametrize("Kw,Kd", [(6, 1), (6, 2), (6, 7), (10, 1), (10, 2), (10, 7),
+                                    (18, 1), (18, 2), (18, 7)])
+def test_two_pass_plain_gemm_bit_identical_with_one_pass(Kw, Kd, monkeypatch):
+    """The plain wide GEMM's two passes (wfma_term_c of every term at once,
+    then wacc_c over t) against the one-pass chain of wfma_acc_c from a
+    zero accumulator and wnormalize_c: limbs and exponents of both words
+    bit-identical, at Kg = 3, 5 and 9, with a broadcast batch and ragged
+    M = 3, N = 2."""
+    if Kw == 6:
+        monkeypatch.setattr(tmw, "wide_config", small_wide_config)
+    a4, b4 = _two_pass_operands(np.random.default_rng(40 + Kw + Kd), Kw, Kd)
+    assert same_wide(tk.mp_matmul_wide_plain(a4, b4), _one_pass(a4, b4, Kw // 2))
+
+
+@pytest.mark.parametrize("Kw", [6, 10, 18])
+def test_two_pass_plain_gemm_in_chunks_of_t(Kw, monkeypatch):
+    """A term budget of 2 B M N: the plain two-pass GEMM runs Kd = 7 in
+    chunks of 2, 2, 2 and 1 values of t, the accumulator carried across
+    them, bit-identical with the one-pass chain."""
+    if Kw == 6:
+        monkeypatch.setattr(tmw, "wide_config", small_wide_config)
+    a4, b4 = _two_pass_operands(np.random.default_rng(60 + Kw), Kw, 7)
+    monkeypatch.setattr(tk, "WIDE_PLAIN_TERMS", 2 * 2 * 3 * 2)
+    assert tk.wide_chunk(2, 3, 7, 2, tk.WIDE_PLAIN_TERMS) == 2
+    assert same_wide(tk.mp_matmul_wide_plain(a4, b4), _one_pass(a4, b4, Kw // 2))
 
 
 def test_spill_case_against_mpmath(small):
