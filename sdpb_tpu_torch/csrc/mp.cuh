@@ -212,16 +212,48 @@ __device__ __forceinline__ MPv<K> mul(const MPv<K>& a, const MPv<K>& b) {
 // rounded 1/sqrt(a0 + a1) (mplist.rsqrt; the device rsqrt() is not
 // correctly rounded and is never used).
 template <int K>
-__device__ __forceinline__ MPv<K> rsqrt(const MPv<K>& a) {
-  MPv<K> r = constant<K>(1.0 / sqrt(a.x[0] + a.x[1]));
-  const MPv<K> half = constant<K>(0.5);
-  const MPv<K> three_half = constant<K>(1.5);
+__device__ __forceinline__ MPv<K> rsqrt_seed(const MPv<K>& a) {
+  return constant<K>(1.0 / sqrt(a.x[0] + a.x[1]));
+}
+
+// The Newton steps of rsqrt, shared by both representations: r <- r (3/2 -
+// (1/2) (a (r r))), the same operations on the same operands as
+// mplist.rsqrt: mul(r, r), mul(a, .), mul(half, .), sub(three_half, .),
+// mul(r, .).  One loop over the steps' products, so that the loop body
+// holds one product and one difference: a pivot chain that runs them back
+// to back fetches that code once, not four times (a scaled product is
+// thousands of instructions): one thread's scaled K = 8 rsqrt took 123,718
+// cycles so against 328,672 as a loop of four products a step.  Classic
+// K = 4 lost in that thread, 21,508 cycles against 17,398, yet the classic
+// factor that runs it took 1.46 ms a ladder iteration against 1.63
+// (tools/mp_chain_probe.cu ops 2 and 7, tools/kernel_times.py; NVIDIA
+// H100 80GB HBM3, 700.00 W; PERF.md §6).
+template <int K, typename V, typename Mul, typename Sub>
+__device__ __forceinline__ V rsqrt_steps(const V& a, V r, const V& half, const V& three_half,
+                                         Mul mul, Sub sub) {
+  V x = r, y = r;  // the next product's operands
 #pragma unroll 1
-  for (int s = 0; s < newton_steps<K>(); ++s) {
-    MPv<K> arr = mul<K>(a, mul<K>(r, r));
-    r = mul<K>(r, sub<K>(three_half, mul<K>(half, arr)));
+  for (int q = 0; q < 4 * newton_steps<K>(); ++q) {
+    const V m = mul(x, y);
+    switch (q & 3) {
+      case 0: x = a; y = m; break;                     // a (r r)
+      case 1: x = half; y = m; break;                  // (1/2) a r^2
+      case 2: x = r; y = sub(three_half, m); break;    // r (3/2 - ...)
+      default: r = m; x = m; y = m; break;             // the next r r
+    }
   }
   return r;
+}
+
+template <int K, typename Mul, typename Sub>
+__device__ __forceinline__ MPv<K> rsqrt(const MPv<K>& a, Mul mul_, Sub sub_) {
+  return rsqrt_steps<K>(a, rsqrt_seed<K>(a), constant<K>(0.5), constant<K>(1.5), mul_, sub_);
+}
+
+template <int K>
+__device__ __forceinline__ MPv<K> rsqrt(const MPv<K>& a) {
+  return rsqrt<K>(a, [](const MPv<K>& x, const MPv<K>& y) { return mul<K>(x, y); },
+                  [](const MPv<K>& x, const MPv<K>& y) { return sub<K>(x, y); });
 }
 
 // 1/a: r <- r + r (1 - a r), seeded with 1 / (a0 + a1) (mplist.reciprocal).
@@ -262,3 +294,35 @@ namespace ar = mps;
 #else
 namespace ar = mpk;
 #endif
+
+// One outlined copy of the MP product and sum, for the kernels whose hot
+// loops run several of them: inlined at every call site, a scaled K = 8
+// product is about 3,700 SASS instructions (60 KB of code), and a loop
+// holding four of them ran each 2.2x slower in one thread than a loop
+// holding one, on instruction fetch (NVIDIA H100 80GB HBM3, 700.00 W;
+// PERF.md §6, step 0).  Called
+// through these, a kernel holds each operation's code once.
+namespace mpo {
+
+template <int K>
+__device__ __noinline__ ar::Val<K> mul(ar::Val<K> a, ar::Val<K> b) {
+  return ar::mul<K>(a, b);
+}
+
+template <int K>
+__device__ __noinline__ ar::Val<K> add(ar::Val<K> a, ar::Val<K> b) {
+  return ar::add<K>(a, b);
+}
+
+template <int K>
+__device__ __forceinline__ ar::Val<K> sub(const ar::Val<K>& a, const ar::Val<K>& b) {
+  return mpo::add<K>(a, ar::neg<K>(b));
+}
+
+template <int K>
+__device__ __forceinline__ ar::Val<K> rsqrt(const ar::Val<K>& a) {
+  return ar::rsqrt<K>(a, [](const ar::Val<K>& x, const ar::Val<K>& y) { return mpo::mul<K>(x, y); },
+                      [](const ar::Val<K>& x, const ar::Val<K>& y) { return mpo::sub<K>(x, y); });
+}
+
+}  // namespace mpo

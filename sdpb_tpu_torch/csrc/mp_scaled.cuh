@@ -180,23 +180,28 @@ __device__ __forceinline__ SV<K> mul(const SV<K>& a, const SV<K>& b) {
 }
 
 // 1/sqrt(a) for a > 0: the seed is the correctly rounded 1/sqrt of the
-// mantissa times 2^(E mod 2), at exponent -floor(E/2), E = e + CENTER.
+// mantissa times 2^(E mod 2), at exponent -floor(E/2), E = e + CENTER; the
+// Newton steps are mpk::rsqrt_steps.
 template <int K>
-__device__ __forceinline__ SV<K> rsqrt(const SV<K>& a) {
+__device__ __forceinline__ SV<K> rsqrt_seed(const SV<K>& a) {
   constexpr int C = center<K>();
   const int E = a.e + C;
   const int q = E >> 1;  // floor(E / 2), an arithmetic shift as in jnp
   const float m = (a.x[0] + a.x[1]) * pow2f(-(C < 126 ? C : 126));
   const float x2 = m * pow2f(E - 2 * q);
-  SV<K> r = from_float<K>(1.0f / sqrtf(x2), -q);
-  const SV<K> half = constant<K>(0.5f);
-  const SV<K> three_half = constant<K>(1.5f);
-#pragma unroll 1
-  for (int s = 0; s < mpk::newton_steps<K>(); ++s) {
-    SV<K> arr = mul<K>(a, mul<K>(r, r));
-    r = mul<K>(r, sub<K>(three_half, mul<K>(half, arr)));
-  }
-  return r;
+  return from_float<K>(1.0f / sqrtf(x2), -q);
+}
+
+template <int K, typename Mul, typename Sub>
+__device__ __forceinline__ SV<K> rsqrt(const SV<K>& a, Mul mul_, Sub sub_) {
+  return mpk::rsqrt_steps<K>(a, rsqrt_seed<K>(a), constant<K>(0.5f), constant<K>(1.5f), mul_,
+                             sub_);
+}
+
+template <int K>
+__device__ __forceinline__ SV<K> rsqrt(const SV<K>& a) {
+  return rsqrt<K>(a, [](const SV<K>& x, const SV<K>& y) { return mul<K>(x, y); },
+                  [](const SV<K>& x, const SV<K>& y) { return sub<K>(x, y); });
 }
 
 // 1/a: r <- r + r (1 - a r), seeded with the mantissa's reciprocal.

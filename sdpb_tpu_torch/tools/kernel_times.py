@@ -1,4 +1,4 @@
-"""Device time per ladder iteration of the GEMMs and the triangular solve of a checkout.
+"""Device time per ladder iteration of the GEMMs, the factor and the triangular solve of a checkout.
 
     python3 sdpb_tpu_torch/tools/kernel_times.py [--root DIR]
 
@@ -10,10 +10,16 @@ card.  The shapes come from the solver: one CLI run of the 120-block ising
 ladder per representation (classic 216 bits, scaled 208 bits, wide 400
 bits; two iterations each) with the wrapper calls tallied by shape, as in
 chip_smoke.py's phases 6, 9 and 11; each tallied shape is then timed as
-those phases time it (chip_smoke.iteration_kernel_ms, from the
-chip_smoke.py at the root of the checkout holding this script).  The last
-line is one JSON object: the card, and ms per iteration by launch counter
-for each representation.
+those phases do (chip_smoke.iteration_kernel_ms, from the chip_smoke.py
+at the root of the checkout holding this script, for both checkouts) but
+with chip_smoke._queued_ms: CUDA events around 10 calls queued behind a
+spin, so that the kernels are timed and not their wrappers' host time.
+Then the factor alone over the batch, B = 1 and 120 at n = 20 and 57
+(classic Kf = 4, scaled Kf = 8 and 9) and scaled Kf = 8 at n = 57 for B
+from 1 to 120: one block a batch element, so a time that hardly moves
+with B is the pivot chain's.  The last line is one JSON object: the card,
+ms per iteration by launch counter for each representation, and the
+factor's ms by batch.
 """
 import argparse
 import contextlib
@@ -25,6 +31,10 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[2]
+# (scaled, Kf, n, batches) of the factor's batch sweep
+FACTOR_SWEEP = ((False, 4, 20, (1, 120)), (False, 4, 57, (1, 120)),
+                (True, 8, 20, (1, 120)), (True, 8, 57, (1, 16, 33, 66, 100, 120)),
+                (True, 9, 20, (1, 120)), (True, 9, 57, (1, 120)))
 
 
 def main(argv=None) -> int:
@@ -36,6 +46,7 @@ def main(argv=None) -> int:
     spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("kernel_times.py needs a CUDA card", file=sys.stderr)
@@ -59,8 +70,21 @@ def main(argv=None) -> int:
                                  cs.kernel_path(kernels, label))
         print(f"{label}:", flush=True)
         out[label] = cs.iteration_kernel_ms(torch, mp, kernels, dev, run["tally"],
-                                            run["iterations"])
-    print(json.dumps({"root": str(root), "card": card, "ms_per_iteration": out}))
+                                            run["iterations"], cs._queued_ms)
+    factor = {}
+    rng = np.random.default_rng(11)
+    for scaled, K, n, batches in FACTOR_SWEEP:
+        for B in batches:
+            limbs = cs._limbs(rng, (B, n, n), -(-(24 * K) // 53) + 1 if scaled else K,
+                              spd=True, decades=3.0 if scaled else 0.0)
+            A = (mp.from_parts(*mp.f64_limbs_to_scaled_parts(limbs, K), dev) if scaled
+                 else mp.MP(torch.as_tensor(limbs, device=dev)))
+            label = f"mp_cholesky {'scaled' if scaled else 'classic'} K={K} [{B},{n},{n}]"
+            factor[label] = cs._queued_ms(torch, lambda: kernels.mp_cholesky(A))
+            print(f"{label}: {factor[label]:.4f} ms, {factor[label] / n:.4f} ms a pivot",
+                  flush=True)
+    print(json.dumps({"root": str(root), "card": card, "ms_per_iteration": out,
+                      "factor_ms": factor}))
     return 0
 
 

@@ -144,13 +144,31 @@ def _time_fn(fn, args, reps: int, device: torch.device):
     return (time.perf_counter() - t0) / reps, out
 
 
+def _time_samples(fn, args, reps: int, device: torch.device):
+    """(seconds of each of `reps` calls, last output): one warm call, then
+    each call timed on its own, closed by a device synchronize, as the
+    solver's loop reads its statistics back after every iteration.  The
+    whole iteration is timed so: on a shared host a slow stretch of
+    seconds can hold back every call of a batch, and calls timed one by
+    one show which were held back."""
+    out = fn(*args)
+    _sync(device)
+    samples = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        _sync(device)
+        samples.append(time.perf_counter() - t0)
+    return samples, out
+
+
 def profile_fixture(fixture: str, scaled_limbs: int, quant: int, omega: str,
                     reps: int, device):
-    """[(phase, seconds, flops)] and the seconds of one whole iteration,
-    from the initial state of `fixture` at Omega = omega.  The factor
-    precision is the JAX tool's choice for this omega, capped at
-    mp.MAX_SCALED_K for a wide run (the factors stay on one scaled word,
-    as solve.py::initial_factor_limbs caps them)."""
+    """[(phase, seconds, flops)] and the seconds of each of `reps` calls of
+    the whole iteration, from the initial state of `fixture` at Omega =
+    omega.  The factor precision is the JAX tool's choice for this omega,
+    capped at mp.MAX_SCALED_K for a wide run (the factors stay on one
+    scaled word, as solve.py::initial_factor_limbs caps them)."""
     from ..io.sdp_zip import read_sdp
     from ..models.sdp import build_device_sdp
     from ..ops import linalg
@@ -323,9 +341,9 @@ def profile_fixture(fixture: str, scaled_limbs: int, quant: int, omega: str,
                    ops * (mul_flops(Kf, sc) + add_flops(Kf, sc))))
 
     # ---- total iteration
-    t_total, _ = timed(make_iteration(cfg), sdp, state)
+    samples, _ = _time_samples(make_iteration(cfg), (sdp, state), reps, device)
 
-    return phases, t_total
+    return phases, samples
 
 
 def report(phases, t_total, peak_gflops, reps, peak_dtype):
@@ -385,9 +403,12 @@ def main(argv=None) -> int:
     dtype = torch.float32 if args.scaledLimbs else torch.float64
     on_card = device.type == "cuda"
     peak = cuda_core_peak_gflops(dtype=dtype, device=device) if on_card else 0.0
-    phases, t_total = profile_fixture(
+    phases, samples = profile_fixture(
         args.fixture, args.scaledLimbs, args.quant, args.omega, args.reps, device)
-    rec = report(phases, t_total, peak, args.reps, str(dtype).replace("torch.", ""))
+    rec = report(phases, sum(samples) / len(samples), peak, args.reps,
+                 str(dtype).replace("torch.", ""))
+    # each call of the whole iteration, of which `iteration_ms` is the mean
+    rec["iteration_samples_ms"] = [round(t * 1e3, 2) for t in samples]
     rec["platform"] = device.type
     if on_card:
         rec["card"] = card_line()

@@ -299,6 +299,86 @@ def test_trsm_kernel_past_shared_memory(cuda, scaled, K, n, m):
 
 
 # ---------------------------------------------------------------------------
+# The GEMM and the factor at edge shapes: the GEMM splits each output's
+# contraction over threads (a chunk of 8 a thread, rounds of chunks, the
+# chunk sums folded in shared memory), the factor runs its pivot chain in
+# a warp of its own ahead of the worker warps
+
+
+GEMM_KDS = (1, 7, 8, 9, 57, 129)
+GEMM_MN = ((1, 33), (33, 1), (15, 15))
+BUILDS = ((False, 4), (False, 8), (True, 8), (True, 9))
+
+
+def _operand(rng, shape, K, scaled, device, decades=2.0):
+    return T(rand_scaled(rng, shape, K, decades=decades) if scaled else rand_limbs(rng, shape, K),
+             device)
+
+
+@pytest.mark.parametrize("Kd", GEMM_KDS)
+@pytest.mark.parametrize("scaled,K", BUILDS)
+def test_gemm_kernel_matches_plain_version_at_edge_shapes(cuda, scaled, K, Kd):
+    """Classic K = 4 and 8, scaled K = 8 and 9: contractions of one chunk
+    and less, a chunk and one, 8 and 17 chunks; one row, one column and a
+    square output; one batch element and more than the card has SMs.  The
+    kernel bit for bit with its plain version on the card, one launch."""
+    rng = np.random.default_rng(800 + Kd + 10 * K + 1000 * scaled)
+    for M, N in GEMM_MN:
+        for B in (1, 133):
+            a = _operand(rng, (B, M, Kd), K, scaled, cuda)
+            b = _operand(rng, (B, Kd, N), K, scaled, cuda)
+            tk.reset_launches()
+            out = tk.mp_matmul(a, b)
+            assert tk.LAUNCHES[tk.counter("mp_matmul", scaled)] == 1
+            assert _same(out, tk.mp_matmul_plain(a, b)), (M, N, B)
+
+
+def test_scaled_gemm_kernel_graded_operands_with_zeros(cuda):
+    """Scaled K = 9 operands over 20 decades with exact zeros (EXP_ZERO)
+    scattered among them and whole chunks of zeros: the exponents meet in
+    the chunk tree and in the accumulate as in the plain version."""
+    rng = np.random.default_rng(901)
+    K, B, M, Kd, N = 9, 7, 15, 57, 15
+    a = rand_scaled(rng, (B, M, Kd), K, decades=10.0)
+    b = rand_scaled(rng, (B, Kd, N), K, decades=10.0)
+    for x, shape in ((a, (B, M, Kd)), (b, (B, Kd, N))):
+        zero = rng.random(shape) < 0.2
+        x[0][:, zero] = 0.0
+        x[1][zero] = tmp.EXP_ZERO
+    a[0][:, :, :, 8:16] = 0.0
+    a[1][:, :, 8:16] = tmp.EXP_ZERO
+    A, Bm = T(a, cuda), T(b, cuda)
+    assert _same(tk.mp_matmul(A, Bm), tk.mp_matmul_plain(A, Bm))
+
+
+CHOL_NS = (1, 2, 31, 32, 33, 57, 65, 130)
+
+
+@pytest.mark.parametrize("n", CHOL_NS)
+@pytest.mark.parametrize("scaled,K", [(False, 4), (True, 8), (True, 9)])
+def test_cholesky_kernel_matches_plain_version_at_edge_shapes(cuda, scaled, K, n):
+    """Classic K = 4, scaled K = 8 and 9 (graded over 5 decades): one and
+    two pivots, a warp's width of pivots and one either side, the ladder's
+    57, and past two warps of rows (one batch element there, so that the
+    plain version stays fast).  Bit for bit, one launch."""
+    rng = np.random.default_rng(1100 + n + 10 * K + 1000 * scaled)
+    B = 1 if n >= 65 else 3
+    A = T(_spd_scaled(rng, B, n, K) if scaled else _spd(rng, B, n, K), cuda)
+    tk.reset_launches()
+    L = tk.mp_cholesky(A)
+    assert tk.LAUNCHES[tk.counter("mp_cholesky", scaled)] == 1
+    assert _same(L, tk.mp_cholesky_plain(A))
+
+
+def test_scaled_cholesky_kernel_graded_over_twenty_decades(cuda):
+    """Scaled K = 8 SPD blocks graded over 20 decades (the ladder's factor
+    limbs), 120 of them at n = 20: bit for bit."""
+    rng = np.random.default_rng(1201)
+    A = T(_spd_scaled(rng, 120, 20, 8, decades=10.0), cuda)
+    assert _same(tk.mp_cholesky(A), tk.mp_cholesky_plain(A))
+
+
+# ---------------------------------------------------------------------------
 # The wide (two-word) GEMM and the wide elementwise ops
 
 

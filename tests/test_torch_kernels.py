@@ -26,10 +26,10 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from sdpb_tpu.ops import pallas_kernels as pk
+from sdpb_tpu.ops import mplist as ml, pallas_kernels as pk
 from sdpb_tpu_torch.ops import kernels as tk, mpfloat as tmp
 
-from torch_parity import (J, T, limbs_of, rand_limbs, rand_scaled, rel_err,
+from torch_parity import (J, T, limbs_of, parts_of, rand_limbs, rand_scaled, rel_err,
                           same_scaled, scaled_rel_err)
 
 torch.set_num_threads(1)
@@ -193,3 +193,208 @@ def test_library_names_follow_source_hash():
     assert len(paths) == len(tk.K_RANGE)
     assert all(p.parent == tk.BUILD_DIR for p in paths)
     assert {p.name for p in tk.CSRC.iterdir()} >= {"mp.cuh", *tk.SOURCES}
+
+
+def _chunk_sum(products, per_lane):
+    """The tree sum of one chunk's 8 products as the GEMM kernel takes it:
+    each of 8 / per_lane lanes folds its per_lane products in order, the
+    pending left operand of each level held until its right neighbour comes;
+    then the lanes are folded by levels, lane l + d the right operand of
+    lane l.  Any split gives ((p0+p1)+(p2+p3)) + ((p4+p5)+(p6+p7))."""
+    lanes = []
+    for lane in range(8 // per_lane):
+        held = {}
+        for u in range(per_lane):
+            v = products[lane * per_lane + u]
+            level = 0
+            while (u >> level) & 1:
+                v = tmp.add(held.pop(level), v)
+                level += 1
+            held[level] = v
+        lanes.append(v)
+    d = 1
+    while d < len(lanes):
+        for lane in range(0, len(lanes), 2 * d):
+            lanes[lane] = tmp.add(lanes[lane], lanes[lane + d])
+        d *= 2
+    return lanes[0]
+
+
+@pytest.mark.parametrize("per_lane", [1, 2, 4, 8])
+@pytest.mark.parametrize("Kd", [1, 8, 9, 20, 57])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_matmul_plain_chunk_sums_then_accumulate_is_the_one_pass(scaled, Kd, per_lane):
+    """The GEMM kernel's order: every chunk's tree sum on its own (products
+    split over lanes, per_lane products a lane), then the chunk sums added
+    into a zero accumulator in chunk order: the bits of mp_matmul_plain,
+    which folds each chunk into the accumulator as soon as it is summed.
+    Zero-padded past Kd, exact zeros among the scaled operands."""
+    rng = np.random.default_rng(80 + Kd + 100 * scaled + 1000 * per_lane)
+    K, B, M, N = 3, 2, 3, 2
+    if scaled:
+        a, b = rand_scaled(rng, (B, M, Kd), K, decades=6.0), rand_scaled(rng, (B, Kd, N), K, decades=6.0)
+        a[0][:, 0, 0, :3] = 0.0
+        a[1][0, 0, :3] = tmp.EXP_ZERO
+        a, b = T(a), T(b)
+    else:
+        a, b = T(rand_limbs(rng, (B, M, Kd), K)), T(rand_limbs(rng, (B, Kd, N), K))
+    pad = (-Kd) % 8
+    ap, bp = tmp.pad_dim(a, 2, pad), tmp.pad_dim(b, 1, pad)
+    acc = tmp.zeros((B, M, N), K, "cpu", scaled=scaled)
+    for c in range((Kd + pad) // 8):
+        products = [tmp.kmul(tmp.expand_dims(ap[..., t], -1), tmp.expand_dims(bp[..., t, :], -2))
+                    for t in range(8 * c, 8 * c + 8)]
+        acc = tmp.add(acc, _chunk_sum(products, per_lane))
+    want = tk.mp_matmul_plain(a, b)
+    assert torch.equal(acc.limbs, want.limbs)
+    if scaled:
+        assert torch.equal(acc.exp, want.exp)
+
+
+def _cholesky_lookahead(a):
+    """The Cholesky kernel's order: the pivot chain computes r_j, then looks
+    ahead (L[j+1,j] = W[j+1,j] r_j, W[j+1,j+1] -= L[j+1,j]^2, r_{j+1});
+    the workers scale column j, then update column j+1 below the diagonal
+    and W[j+2,j+2] first, the rest of the trailing block after."""
+    n = a.shape[-1]
+    E = Ellipsis
+    W = tmp.MP(a.limbs.clone(), None if a.exp is None else a.exp.clone())
+    L = tmp.zeros(a.shape, a.K, "cpu", scaled=a.scaled)
+    r = tmp.rsqrt(W[E, 0, 0], kernel_order=True)
+    for j in range(n):
+        tmp.set_block(L, (E, j, j), tmp.kmul(W[E, j, j], r))
+        if j + 1 == n:
+            break
+        col = tmp.kmul(W[E, j + 1:, j], tmp.expand_dims(r, -1))      # L[j+1:, j]
+        tmp.set_block(L, (E, slice(j + 1, None), j), col)
+        # the chain
+        l1 = col[E, 0]
+        tmp.set_block(W, (E, j + 1, j + 1), tmp.sub(W[E, j + 1, j + 1], tmp.kmul(l1, l1)))
+        r_next = tmp.rsqrt(W[E, j + 1, j + 1], kernel_order=True)
+        # the workers
+        if j + 2 < n:
+            below = col[E, 1:]                                          # L[j+2:, j]
+            rows = (E, slice(j + 2, None), j + 1)
+            tmp.set_block(W, rows, tmp.sub(W[rows], tmp.kmul(below, tmp.expand_dims(l1, -1))))
+            tmp.set_block(W, (E, j + 2, j + 2),
+                          tmp.sub(W[E, j + 2, j + 2], tmp.kmul(below[E, 0], below[E, 0])))
+            first = W[E, j + 2, j + 2]
+            first = tmp.MP(first.limbs.clone(), None if first.exp is None else first.exp.clone())
+            trail = (E, slice(j + 2, None), slice(j + 2, None))
+            upd = tmp.kmul(tmp.expand_dims(below, -1), tmp.expand_dims(below, -2))
+            tmp.set_block(W, trail, tmp.sub(W[trail], upd))
+            tmp.set_block(W, (E, j + 2, j + 2), first)                 # updated once, above
+        r = r_next
+    return L
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 20])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_cholesky_plain_lookahead_is_the_same_factor(scaled, n):
+    """The look-ahead order of the Cholesky kernel (pivot j+1's diagonal
+    updated and its rsqrt started before the rest of pivot j's trailing
+    update) gives the bits of mp_cholesky_plain: every entry still takes its
+    updates in pivot order."""
+    rng = np.random.default_rng(90 + n + 100 * scaled)
+    K = 3
+    A = T(_spd_scaled(rng, 2, n, K, decades=4.0)) if scaled else T(_spd(rng, 2, n, K))
+    L, want = _cholesky_lookahead(A), tk.mp_cholesky_plain(A)
+    assert torch.equal(L.limbs, want.limbs)
+    if scaled:
+        assert torch.equal(L.exp, want.exp)
+
+
+def test_shape_tally_counts_the_factor():
+    """chip_smoke.py's tally of the wrappers' calls by shape (the per-
+    iteration device time of phases 6, 9 and 11 and tools/kernel_times.py)
+    counts the factor beside the GEMM and the solve, and leaves the
+    wrappers as they were."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    rng = np.random.default_rng(5)
+    A = T(_spd(rng, 2, 4, 2))
+    B = T(rand_limbs(rng, (2, 4, 3), 2))
+    wrappers = (tk.mp_matmul, tk.mp_cholesky, tk.mp_solve_triangular)
+    with cs._shape_tally(tk) as tally:
+        L = tk.mp_cholesky(A)
+        tk.mp_cholesky(A)
+        tk.mp_matmul(A, B)
+        tk.mp_solve_triangular(L, B, lower=False)
+    assert (tk.mp_matmul, tk.mp_cholesky, tk.mp_solve_triangular) == wrappers
+    assert tally == {("mp_cholesky", "classic", 2, (2, 4, 4), (), None): 2,
+                     ("mp_matmul", "classic", 2, (2, 4, 4), (2, 4, 3), None): 1,
+                     ("mp_solve_triangular", "classic", 2, (2, 4, 4), (2, 4, 3), False): 1}
+    assert cs._call_label(("mp_cholesky", "scaled", 8, (120, 57, 57), (), None)) == \
+        "mp_cholesky scaled K=8 [120, 57, 57]"
+
+
+def _ml(parts, K):
+    """Scaled parts as a list-form value of the JAX package (mplist)."""
+    return [jnp.asarray(parts[0][k]) for k in range(K)], jnp.asarray(parts[1])
+
+
+def _scaled_mpf(limbs, exp, idx):
+    import mpmath
+    return (mpmath.fsum(mpmath.mpf(float(x)) for x in limbs[(slice(None),) + idx])
+            * mpmath.mpf(2) ** int(exp[idx]))
+
+
+@pytest.mark.parametrize("K", [8, 9])
+def test_scaled_product_drops_a_limb_far_below_its_slot(K):
+    """The scaled product prescales limb i by 2^(24 i - CENTER + 15)
+    (mplist.mul; mpfloat.MUL_UNIFORM_EXP) before its TwoProds, so a second
+    limb that lies ~190 bits below the first falls below float32's range
+    and drops out: (1/2) (1 - 2^-190) comes out as 1/2, in the JAX
+    package's list-form product (which the Pallas kernels run) and in the
+    port's alike; 1 - 2^-100 keeps its second limb in both."""
+    half = tmp.from_double(0.5, K, "cpu", scaled=True)
+    one = tmp.from_double(1.0, K, "cpu", scaled=True)
+    for t, dropped in ((190, True), (100, False)):
+        x = tmp.sub(one, tmp.from_double(2.0 ** -t, K, "cpu", scaled=True))
+        port = tmp.kmul(half, x)
+        ref = ml.mul(_ml(parts_of(half), K), _ml(parts_of(x), K), K)
+        ref = (np.stack([np.asarray(v) for v in ref[0]]), np.array(ref[1]))
+        assert same_scaled(port, half) == dropped, t
+        assert same_scaled(tmp.MP(torch.from_numpy(ref[0]), torch.from_numpy(ref[1])),
+                           half) == dropped, t
+
+
+def test_scaled_rsqrt_and_factor_stall_near_2_pow_minus_188(monkeypatch):
+    """Why the scaled factor reconstructs A to ~2^-188 at Kf = 8 and 9
+    alike, where 24 Kf bits would give ~2^-206 at Kf = 9 (chip_smoke.py
+    phase 10 holds Kf = 9 to phase 7's Kf = 8 bound, 2^-182): at rsqrt's
+    Newton fixed point a r^2 = 1 - d with |d| ~ 2^-190, and the product
+    (1/2) (a r^2) drops d (the test above), so r stops improving near
+    2^-188.  mplist.rsqrt, the rsqrt the Pallas factor runs at every pivot,
+    stalls there as well (its bits differ from the port's on the CPU,
+    where XLA also flushes subnormals); the port's plain factor at Kf = 9
+    reconstructs A (mpmath) to within 2^-182, and not to 2^-200."""
+    import mpmath
+    K, n = 9, 15
+    rng = np.random.default_rng(909)
+    a = rand_scaled(rng, (16,), K, decades=3.0, positive=True)
+    ref = ml.rsqrt(_ml(a, K), K)
+    ref = (np.stack([np.asarray(v) for v in ref[0]]), np.array(ref[1]))
+    monkeypatch.setattr(tmp, "inv_sqrt", lambda m: torch.from_numpy(
+        np.array(jax.lax.rsqrt(jnp.asarray(m.numpy())))))
+    port = parts_of(tmp.rsqrt(T(a), kernel_order=True))
+    monkeypatch.undo()
+    with mpmath.workprec(24 * K + 80):
+        for limbs, exp in (ref, port):
+            worst = max(abs(_scaled_mpf(limbs, exp, (i,)) * mpmath.sqrt(
+                _scaled_mpf(*a, (i,))) - 1) for i in range(16))
+            assert mpmath.mpf(2) ** -200 < worst < mpmath.mpf(2) ** -182
+        A = _spd_scaled(rng, 1, n, K, decades=3.0)
+        L = parts_of(tk.mp_cholesky(T(A)))
+        worst = mpmath.mpf(0)
+        for i in range(n):
+            for j in range(i + 1):
+                rec = mpmath.fsum(_scaled_mpf(*L, (0, i, t)) * _scaled_mpf(*L, (0, j, t))
+                                  for t in range(j + 1))
+                scale = mpmath.sqrt(_scaled_mpf(*A, (0, i, i)) * _scaled_mpf(*A, (0, j, j)))
+                worst = max(worst, abs(rec - _scaled_mpf(*A, (0, i, j))) / scale)
+        assert mpmath.mpf(2) ** -200 < worst < mpmath.mpf(2) ** -182

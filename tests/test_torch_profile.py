@@ -273,6 +273,7 @@ def certificate_phases():
     try:
         mp.setattr(jpp, "_time_fn", jax_time)
         mp.setattr(tpp, "_time_fn", port_time)
+        mp.setattr(tpp, "_time_samples", lambda fn, args, reps, device: ([1e-3] * reps, None))
         jph, _ = jpp.profile_fixture(CERTIFICATE, 0, 32, "1e6", 1, use_cache=False)
         tph, _ = tpp.profile_fixture(CERTIFICATE, 0, 32, "1e6", 1, "cpu")
     finally:
@@ -322,6 +323,7 @@ def test_main_writes_every_phase_on_the_cpu(tmp_path, capsys):
     for r in rec["phases"][:-1]:
         assert r["ms"] > 0 and r["pct_of_peak"] is None and r["gflops"] >= 0
     assert rec["iteration_ms"] > 0 and rec["reps"] == 1
+    assert rec["iteration_samples_ms"] == [rec["iteration_ms"]]
 
 
 def test_main_refuses_a_missing_card_and_bad_limbs(monkeypatch):
