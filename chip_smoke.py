@@ -15,10 +15,14 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      checks against mpmath, kernel and plain times, bounds, and each
      kernel's share of its bound (bound ms / kernel ms);
   5. the dim-2 certificate SDP (fixtures/dim2_certificate/sdp.zip) solved
-     to optimality through the CLI entry point at 150 bits, classic: y*
-     must match the independently bisected optimum;
+     to optimality through the CLI entry point at 150 bits, classic, in the
+     CLI's default run loop (the chunked loop: replays of the iteration's
+     CUDA graphs, termination decided on the card): y* must match the
+     independently bisected optimum;
   6. the 120-block ladder fixture at 216 bits, classic, for a bounded
-     number of iterations: finite statistics, positive steps, falling mu,
+     number of iterations in the host loop (as phases 9, 11 and 13's
+     solves; a Python call of a kernel wrapper is a launch there): finite
+     statistics, positive steps, falling mu,
      seconds per iteration, peak memory, kernel launch counts, the wrapper
      calls by shape and the device ms per iteration of the GEMM, the
      factor and the triangular solve over those shapes (each shape timed
@@ -54,7 +58,17 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      positive, the probe and the representation's kernels launched, and
      the fastest profiled scaled and wide iteration within 25% of the
      fastest steady iteration of that representation's ladder solve, run
-     right before and right after the profile.
+     right before and right after the profile;
+ 14. the chunked loop against the host loop on the ladder, classic K=5 and
+     scaled K32=9 (LADDER_ITERATIONS) and wide 2x9 (WIDE_ITERATIONS): every
+     statistic of every iteration, the reason, the count and the final
+     state identical; s/iteration both ways (the chunked one per replay,
+     the capture not counted), the graphs' capture and instantiate
+     seconds, node counts and memory, peak device memory, a replay's
+     device ms of graph A, the eigvalsh calls and graph B; the launches of
+     every kernel of the path counted in the replays (the capture's count
+     per replay, plus the eager warm-up's).  These runs are the main path
+     whose launches the kernels' record reports.
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is the kernels' JSON record, and the line before that the card's name
 and power limit.  Without CUDA, or outside a checkout, the script exits
@@ -727,11 +741,13 @@ def iteration_kernel_ms(torch, mp, kernels, dev, tally, iterations, time_ms=_tim
     return totals
 
 
-def _ladder_run(torch, kernels, cli, dev, prec, iterations, check_path):
-    """One CLI run of the ladder for iterations + 1 iterations: finite
-    statistics, positive steps, falling mu, out.txt written, and every
-    kernel of `check_path` launched in this run (counts set to 0 just
-    before it, read just after)."""
+def _ladder_run(torch, kernels, cli, dev, prec, iterations, check_path, chunk_iterations=1):
+    """One CLI run of the ladder for iterations + 1 iterations, in the host
+    loop (chunk_iterations=1) or the chunked loop (0): finite statistics,
+    positive steps, falling mu, out.txt written, and every kernel of
+    `check_path` launched in this run (counts set to 0 just before it,
+    read just after).  The wrapper calls by shape mean launches in the
+    host loop only (a capture calls each wrapper once)."""
     from sdpb_tpu_torch.solver.solve import host_mpf
     import numpy as np
     with tempfile.TemporaryDirectory() as tmp:
@@ -741,7 +757,8 @@ def _ladder_run(torch, kernels, cli, dev, prec, iterations, check_path):
         with _shape_tally(kernels) as tally:
             res = cli.run(["-s", str(LADDER), "-o", str(Path(tmp) / "out"),
                            "--device", str(dev), *prec, *LADDER_FLAGS,
-                           "--maxIterations", str(iterations)])
+                           "--maxIterations", str(iterations)],
+                          chunk_iterations=chunk_iterations)
         wall = time.time() - t0
         launches = dict(kernels.LAUNCHES)
         peak = torch.cuda.max_memory_allocated(dev)
@@ -759,19 +776,29 @@ def _ladder_run(torch, kernels, cli, dev, prec, iterations, check_path):
     mus = [float(host_mpf(st.mu)) for st in hist]
     check(all(b < a for a, b in zip(mus, mus[1:])), f"mu does not fall: {mus}")
     its = res.iteration_seconds
-    steady = statistics.median(its[1:]) if len(its) > 1 else its[0]
-    print(f"{' '.join(prec)}: {res.terminate_reason}; {len(hist)} iterations in "
-          f"{sum(its):.1f} s (wall {wall:.1f} s incl. reading the zip); first "
+    loop = "host loop"
+    if chunk_iterations == 1:
+        steady = statistics.median(its[1:]) if len(its) > 1 else its[0]
+        each = its
+    else:
+        # a replay runs a whole iteration, executed or not
+        each = [dt / n for _, n, dt in res.chunks]
+        steady = statistics.median(each)
+        loop = f"chunked loop, chunks {res.chunks}, s/replay"
+    print(f"{' '.join(prec)} ({loop}): {res.terminate_reason}; {len(hist)} iterations "
+          f"in {sum(its):.1f} s (wall {wall:.1f} s incl. reading the zip); first "
           f"{its[0]:.2f} s, steady median {steady:.3f} s/iteration (each: "
-          f"{' '.join(f'{t:.2f}' for t in its)}); peak device memory "
+          f"{' '.join(f'{t:.3f}' for t in each)}); peak device memory "
           f"{peak / 2**30:.2f} GiB; launches {launches}")
     print(f"mu: {' '.join(f'{m:.3e}' for m in mus)}")
-    print(f"wrapper calls by shape over the {len(hist)} iterations: "
-          + "; ".join(f"{_call_label(k)}: {v}"
-                      for k, v in sorted(tally.items(), key=lambda kv: _call_label(kv[0]))))
+    if chunk_iterations == 1:
+        print(f"wrapper calls by shape over the {len(hist)} iterations: "
+              + "; ".join(f"{_call_label(k)}: {v}" for k, v in
+                          sorted(tally.items(), key=lambda kv: _call_label(kv[0]))))
     check(all(launches[n] > 0 for n in check_path), f"a kernel did not run: {launches}")
     return {"launches": launches, "s_per_it": steady, "steady_its": list(its[1:]),
-            "peak_bytes": peak, "history": hist, "iterations": len(hist), "tally": tally}
+            "peak_bytes": peak, "history": hist, "iterations": len(hist), "tally": tally,
+            "result": res, "wall": wall}
 
 
 def _shared_digits(mine, ref):
@@ -991,6 +1018,69 @@ def profile_phase(torch, kernels, cli, dev):
     return records, probe_launches
 
 
+def _stat_bits(v):
+    """A HostStats field as exactly comparable Python values."""
+    import numpy as np
+    if isinstance(v, list):
+        return tuple(_stat_bits(w) for w in v)
+    if isinstance(v, tuple):
+        return (np.asarray(v[0]).tobytes(), v[1])
+    return v.tobytes() if isinstance(v, np.ndarray) else v
+
+
+def chunked_phase(torch, kernels, cli, dev):
+    """Phase 14: the ladder in the chunked loop (the CLI's default) and in
+    the host loop, back to back, in the three representations."""
+    phase(f"14. the chunked loop (CUDA-graph replays) against the host loop on the "
+          f"ladder: classic K=5 and scaled K32=9 ({LADDER_ITERATIONS} iterations), wide "
+          f"2x9 ({WIDE_ITERATIONS})")
+    from sdpb_tpu_torch.solver.step import state_tensors
+    out = {}
+    for label, its in (("classic", LADDER_ITERATIONS), ("scaled", LADDER_ITERATIONS),
+                       ("wide", WIDE_ITERATIONS)):
+        path = kernel_path(kernels, label)
+        host = _ladder_run(torch, kernels, cli, dev, list(LADDER_PREC[label]), its, path)
+        chunked = _ladder_run(torch, kernels, cli, dev, list(LADDER_PREC[label]), its, path,
+                              chunk_iterations=0)
+        a, b = host["result"], chunked["result"]
+        check(str(a.terminate_reason) == str(b.terminate_reason) and
+              a.iterations == b.iterations and len(a.history) == len(b.history),
+              f"{label}: the chunked loop ended otherwise: {b.terminate_reason} after "
+              f"{b.iterations} against {a.terminate_reason} after {a.iterations}")
+        diffs = [(i + 1, f) for i, (x, y) in enumerate(zip(a.history, b.history))
+                 for f in x._fields if _stat_bits(getattr(x, f)) != _stat_bits(getattr(y, f))]
+        check(not diffs, f"{label}: statistics differ from the host loop's: {diffs[:8]}")
+        check(all(torch.equal(p, q) for p, q in zip(state_tensors(a.state),
+                                                    state_tensors(b.state))),
+              f"{label}: the final state differs from the host loop's")
+        (kf, info), = b.graphs.items()
+        replays = sum(n for _, n, _ in b.chunks)
+        per = info["launches_per_replay"]
+        # the eager warm-up ahead of the capture, then every replay
+        check(all(chunked["launches"][k] == (replays + 1) * per.get(k, 0)
+                  for k in chunked["launches"]) and all(per.get(k, 0) > 0 for k in path),
+              f"{label}: launches {chunked['launches']} are not {replays} + 1 times the "
+              f"capture's {per}")
+        ratio = host["s_per_it"] / chunked["s_per_it"]
+        parts = [statistics.median(p) for p in zip(*b.replay_ms)]
+        print(f"{label}: {len(b.history)} iterations identical, {b.terminate_reason}; "
+              f"s/iteration host loop {host['s_per_it']:.4f}, chunked {chunked['s_per_it']:.4f} "
+              f"({ratio:.2f}x); graphs (factor {kf} limbs) A+B nodes {info['nodes']} "
+              f"(kernels {info['kernel_nodes']}), warm-up {info['warmup_s']:.2f} s, capture "
+              f"{info['capture_s']:.2f} s, instantiate {info['instantiate_s']:.2f} s, pool "
+              f"{info['pool_bytes'] / 2**30:.2f} GiB; peak device memory host loop "
+              f"{host['peak_bytes'] / 2**30:.2f} GiB, chunked {chunked['peak_bytes'] / 2**30:.2f} "
+              f"GiB; wall host loop {host['wall']:.1f} s, chunked {chunked['wall']:.1f} s; "
+              f"{replays} replays, launches per replay {per}")
+        print(f"{label}: a replay's device ms (median of {len(b.replay_ms)}): graph A "
+              f"{parts[0]:.2f} ({1e3 * parts[0] / info['nodes'][0]:.2f} us a node), the "
+              f"eigvalsh calls and the host's sync {parts[1]:.2f}, graph B {parts[2]:.2f} "
+              f"({1e3 * parts[2] / info['nodes'][1]:.2f} us a node)")
+        out[label] = {"host": host, "chunked": chunked, "graphs": info, "ratio": ratio,
+                      "replay_ms": parts}
+    return out
+
+
 def main():
     if not (ROOT / "sdpb_tpu_torch").is_dir() or not LADDER.exists() \
             or not CERTIFICATE.exists():
@@ -1020,12 +1110,15 @@ def main():
     wladder = wide_ladder_phase(torch, kernels, cli, dev)
     prows = probe_phase(torch, kernels, dev, smi)
     profiles, probe_launches = profile_phase(torch, kernels, cli, dev)
+    chunked = chunked_phase(torch, kernels, cli, dev)
     check("jax" not in sys.modules, "the port imported jax")
     check(not any(m == "sdpb_tpu" or m.startswith("sdpb_tpu.") for m in sys.modules),
           "the port imported the JAX package")
 
     record = []
-    for scaled, krows, run in ((False, rows, ladder), (True, srows, sladder)):
+    # launches on the main path: the chunked ladder runs of phase 14
+    for scaled, krows, run in ((False, rows, chunked["classic"]["chunked"]),
+                               (True, srows, chunked["scaled"]["chunked"])):
         for name, (source, replaces) in KERNELS.items():
             mine = [r for r in krows if r[0] == name]
             first = mine[-1] if name == "mp_matmul" else mine[0]
@@ -1039,7 +1132,7 @@ def main():
     name, source, replaces = WIDE_KERNEL
     first = [r for r in wrows if r[1].endswith("Kg=9")][-1]
     record.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                   "launches": wladder["launches"][name],
+                   "launches": chunked["wide"]["chunked"]["launches"][name],
                    "max_abs_err": max(r[2] for r in wrows if r[0] == name), "ms": first[4],
                    "plain_ms": first[5], "bound_ms": first[6], "bound_by": first[7],
                    "library_ms": None})
@@ -1063,6 +1156,9 @@ def main():
           f"{wladder['iterations']} iterations; CUDA-core rates {prows[0][3]:.4e} float32, "
           f"{prows[1][3]:.4e} float64 per s; profiler iterations "
           + ", ".join(f"{lb} {profiles[lb]['iteration_ms']:.1f} ms" for lb, _, _ in PROFILES)
+          + "; ladder s/iteration host loop -> chunked "
+          + ", ".join(f"{lb} {c['host']['s_per_it']:.3f} -> {c['chunked']['s_per_it']:.3f}"
+                      for lb, c in chunked.items())
           + f"; total {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": record}))

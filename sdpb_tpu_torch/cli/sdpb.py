@@ -80,8 +80,10 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def run(argv=None):
-    """Parse, solve and write the solution; returns the SolveResult."""
+def run(argv=None, chunk_iterations: int = 0):
+    """Parse, solve and write the solution; returns the SolveResult.
+    chunk_iterations as run_solver's (0: the chunked loop in chunks of 8;
+    1: the host loop); the command line always takes the default."""
     args = parse_with_param_file(build_parser(), argv)
     for name in _REFUSED:
         if getattr(args, name) is not None:
@@ -137,7 +139,8 @@ def run(argv=None):
     with timers.scope("read_sdp"):
         host = read_sdp(sdp_path, K, np.float64)
     sdp = build_device_sdp(host, device, scaled_limbs=scaled_limbs)
-    result = run_solver(sdp, params, verbosity=verbosity, timers=timers)
+    result = run_solver(sdp, params, verbosity=verbosity, timers=timers,
+                        chunk_iterations=chunk_iterations)
 
     if verbosity >= 1:
         print(f"-----{result.terminate_reason}-----")

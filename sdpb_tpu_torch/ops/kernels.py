@@ -25,7 +25,9 @@ Dispatch is by the device of the operands and nothing else: CUDA tensors
 launch the kernel of their representation (a shape, limb count or dtype
 the kernel cannot take raises), CPU tensors run the plain version.  There
 is no fallback.  Each wrapper counts its launches in `LAUNCHES`, one
-counter per (kernel, representation).
+counter per (kernel, representation); a CUDA graph's replays add the
+launches its capture recorded (take_launches, add_launches), so the counts
+stay the launches the device ran.
 
 The plain versions perform the kernels' exact operation order with the
 port's MP ops (`mpfloat.kmul`, the mplist term order; for the wide GEMM
@@ -89,6 +91,20 @@ _LIBS = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def take_launches(before: dict) -> dict:
+    """The launches counted since `before` (a copy of LAUNCHES), taken back
+    out of LAUNCHES: what a CUDA-graph capture recorded without running."""
+    made = {k: LAUNCHES[k] - before.get(k, 0) for k in LAUNCHES}
+    LAUNCHES.update(before)
+    return made
+
+
+def add_launches(counts: dict) -> None:
+    """Count the launches of one replay of a captured graph."""
+    for k, v in counts.items():
+        LAUNCHES[k] += v
 
 
 def counter(name: str, scaled: bool) -> str:

@@ -8,6 +8,8 @@ value (PosdefSolver factors word 0 and refines with wide residuals).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import kernels
@@ -122,10 +124,20 @@ class PosdefSolver:
         return x
 
 
-def min_eigenvalue_estimate(A: MP) -> torch.Tensor:
-    """lambda_min of symmetric blocks A [..., n, n] in float64: rescaled by
-    the max magnitude, symmetrized (as jnp.linalg.eigvalsh does by
-    default), then eigvalsh.
+class EigInput(NamedTuple):
+    """What eigvalsh reads for min_eigenvalue_estimate, and how its result
+    is read back."""
+    sym: torch.Tensor     # [..., n, n] float64, rescaled, symmetrized, finite
+    scale: torch.Tensor   # [..., 1, 1] the rescaling
+    bad: torch.Tensor     # [...] True where A had a non-finite entry
+
+
+def eigvalsh_input(A: MP) -> EigInput:
+    """The float64 matrices of min_eigenvalue_estimate, without the
+    eigvalsh: A read as float64, rescaled by its max magnitude and
+    symmetrized (as jnp.linalg.eigvalsh does by default).  A non-finite
+    entry (a failed iteration) is zeroed and its matrix marked `bad`, since
+    LAPACK and cuSOLVER refuse it where jnp.linalg.eigvalsh returns NaN.
 
     A scaled A is read as its nearest float64 (mpfloat.nearest_double)
     where the JAX package reads float32, its base type on the TPU: the card
@@ -137,5 +149,21 @@ def min_eigenvalue_estimate(A: MP) -> torch.Tensor:
     scale = torch.amax(torch.abs(a), dim=(-2, -1), keepdim=True)
     safe = torch.where(scale == 0, torch.ones_like(scale), scale)
     s = a / safe
-    w = torch.linalg.eigvalsh((s + s.mT) / 2)
-    return w[..., 0] * safe[..., 0, 0]
+    sym = (s + s.mT) / 2
+    finite = torch.isfinite(sym)
+    return EigInput(torch.where(finite, sym, torch.zeros_like(sym)), safe,
+                    torch.logical_not(torch.all(finite.flatten(-2), dim=-1)))
+
+
+def min_eigenvalue_from(inp: EigInput, w: torch.Tensor) -> torch.Tensor:
+    """lambda_min from the eigenvalues w = eigvalsh(inp.sym): NaN where
+    the matrix was not finite."""
+    lmin = w[..., 0] * inp.scale[..., 0, 0]
+    return torch.where(inp.bad, torch.full_like(lmin, float("nan")), lmin)
+
+
+def min_eigenvalue_estimate(A: MP) -> torch.Tensor:
+    """lambda_min of symmetric blocks A [..., n, n] in float64
+    (eigvalsh_input, then eigvalsh)."""
+    inp = eigvalsh_input(A)
+    return min_eigenvalue_from(inp, torch.linalg.eigvalsh(inp.sym))

@@ -69,6 +69,23 @@ def center_for(K: int) -> int:
     return max(0, 24 * K - 100)
 
 
+# Device constants made from host values, once per key and device: a
+# host-to-device copy inside a captured CUDA graph would either fail or
+# replay a host buffer that is gone (solver/graphs.py), and the eager loop
+# saves a copy per use.  No caller may write into a cached tensor.
+_CONSTS = {}
+
+
+def device_const(key, device, make):
+    """The tensor (or MP) `make()` gives on `device`, made on first use of
+    (key, device) and kept."""
+    k = (key, str(torch.device(device)))
+    out = _CONSTS.get(k)
+    if out is None:
+        out = _CONSTS[k] = make()
+    return out
+
+
 class MP:
     """limbs[K, *shape], value = 2^exp * sum of limbs (exp None: classic)."""
 
@@ -360,6 +377,15 @@ def from_double(x, K: int, device=None, scaled: bool = False) -> MP:
     return MP(torch.as_tensor(limbs, device=device))
 
 
+def const(x: float, K: int, device, scaled: bool = False):
+    """The host number x as an MP (or, scaled with K > MAX_SCALED_K, a
+    wide MPW) on `device`, made once (device_const); read-only."""
+    if _wide_k(K, scaled):
+        return _wide().const(x, K, device)
+    return device_const(("mp", float(x), K, scaled), device,
+                        lambda: from_double(np.float64(x), K, device, scaled=scaled))
+
+
 def to_scaled(a: MP, K: int) -> MP:
     """A classic float64 MP as a scaled K-limb MP on the same device (an
     exact host conversion when K limbs hold the value's bits)."""
@@ -459,6 +485,10 @@ def neg(a: MP) -> MP:
 def _as_tensor(m, like: MP) -> torch.Tensor:
     if isinstance(m, torch.Tensor):
         return m.to(device=like.device, dtype=like.dtype)
+    if isinstance(m, (int, float)):
+        return device_const(("scalar", float(m), like.dtype), like.device,
+                            lambda: torch.as_tensor(float(m), dtype=like.dtype,
+                                                    device=like.device))
     return torch.as_tensor(np.asarray(m), dtype=like.dtype, device=like.device)
 
 
@@ -485,7 +515,9 @@ def take(a: MP, idx, axis: int) -> MP:
     if isinstance(idx, int):
         return MP(a.limbs.select(axis + 1, idx),
                   None if a.exp is None else a.exp.select(axis, idx))
-    idx = torch.as_tensor(idx, dtype=torch.long, device=a.device)
+    idx = tuple(int(i) for i in idx)
+    idx = device_const(("take", idx), a.device,
+                       lambda: torch.as_tensor(idx, dtype=torch.long, device=a.device))
     return MP(a.limbs.index_select(axis + 1, idx),
               None if a.exp is None else a.exp.index_select(axis, idx))
 
@@ -702,8 +734,9 @@ def _mul_terms(a: MP, b: MP, sequential: bool):
     scaled = a.scaled
     C = center_for(K) if scaled else 0
     if scaled:
-        pre = torch.tensor([2.0 ** (24 * i - C + MUL_UNIFORM_EXP) for i in range(K)],
-                           dtype=SCALED_DTYPE, device=al.device)
+        pre = device_const(("mul_pre", K), al.device, lambda: torch.tensor(
+            [2.0 ** (24 * i - C + MUL_UNIFORM_EXP) for i in range(K)],
+            dtype=SCALED_DTYPE, device=al.device))
         pre = pre.reshape((K,) + (1,) * len(shape))
         al = al * pre
         bl = bl * pre
@@ -841,7 +874,8 @@ def mul_full(a: MP, b: MP):
     PE = torch.cat([P.reshape((K * K,) + shape), E.reshape((K * K,) + shape)], 0)
     D = (-(lift_a[:, None] + lift_b[None, :]) - C).reshape((K * K,) + shape)
     exp_hi = torch.broadcast_to(a.exp, shape) + torch.broadcast_to(b.exp, shape) + C
-    idx = torch.as_tensor(mul_term_plan_full(K), dtype=torch.long, device=al.device)
+    idx = device_const(("mul_plan_full", K), al.device, lambda: torch.as_tensor(
+        mul_term_plan_full(K), dtype=torch.long, device=al.device))
     G = PE[idx]
     Drow = D[idx % (K * K)]
     keep_hi = (_exp_bits(G) + Drow) >= 24
@@ -940,7 +974,7 @@ def reciprocal(b: MP, kernel_order: bool = False) -> MP:
     if _is_wide(b):
         return _wide().reciprocal(b)
     m_ = kmul if kernel_order else mul
-    one = from_double(1.0, b.K, b.device, scaled=b.scaled)
+    one = const(1.0, b.K, b.device, scaled=b.scaled)
     if b.scaled:
         m = _unit_mantissa(b)
         r = _from_float_exp(torch.ones_like(m) / m, -(b.exp + center_for(b.K)), b.K)
@@ -963,7 +997,9 @@ def inv_sqrt(m: torch.Tensor) -> torch.Tensor:
     in the CUDA kernels.  torch's vectorized float64 sqrt on the CPU is not
     correctly rounded, so CPU tensors take numpy's (IEEE) sqrt."""
     if m.device.type == "cpu":
-        return torch.from_numpy(1.0 / np.sqrt(m.numpy()))
+        out = torch.empty_like(m)
+        np.divide(1.0, np.sqrt(m.numpy()), out=out.numpy())
+        return out
     return 1.0 / torch.sqrt(m)
 
 
@@ -974,8 +1010,8 @@ def rsqrt(a: MP, kernel_order: bool = False) -> MP:
     if _is_wide(a):
         return _wide().rsqrt(a)
     m_ = kmul if kernel_order else mul
-    half = from_double(0.5, a.K, a.device, scaled=a.scaled)
-    three_half = from_double(1.5, a.K, a.device, scaled=a.scaled)
+    half = const(0.5, a.K, a.device, scaled=a.scaled)
+    three_half = const(1.5, a.K, a.device, scaled=a.scaled)
     if a.scaled:
         E = a.exp + center_for(a.K)
         q = E >> 1
@@ -994,7 +1030,7 @@ def sqrt(a: MP) -> MP:
     zero, a negative input NaN."""
     if _is_wide(a):
         return _wide().sqrt(a)
-    half = from_double(0.5, a.K, a.device, scaled=a.scaled)
+    half = const(0.5, a.K, a.device, scaled=a.scaled)
     top = a.limbs[0]
     is_zero = top <= 0
     one_l = torch.zeros_like(a.limbs)
@@ -1038,7 +1074,10 @@ def where(cond, a: MP, b: MP) -> MP:
     if _is_wide(a) or _is_wide(b):
         return _wide().where(cond, a, b)
     _check_modes(a, b)
-    if not isinstance(cond, torch.Tensor):
+    if isinstance(cond, (bool, np.bool_)):
+        cond = device_const(("cond", bool(cond)), a.device,
+                            lambda: torch.tensor(bool(cond), device=a.device))
+    elif not isinstance(cond, torch.Tensor):
         cond = torch.as_tensor(np.asarray(cond, dtype=bool), device=a.device)
     shape = torch.broadcast_shapes(a.shape, b.shape, tuple(cond.shape))
     c = torch.broadcast_to(cond, shape)

@@ -121,6 +121,13 @@ def from_double(x, K: int, device=None) -> MPW:
                              for _ in range(G - 1)))
 
 
+def const(x: float, K: int, device) -> MPW:
+    """The host number x as a wide value on `device`, made once
+    (mpfloat.device_const); read-only."""
+    return mpf.device_const(("mpw", float(x), K, wide_config(K)), device,
+                            lambda: from_double(np.float64(x), K, device))
+
+
 def widen(a: MP, K: int) -> MPW:
     """A scaled MP as an MPW with zero tail words (exact)."""
     G, Kg = wide_config(K)
@@ -226,7 +233,7 @@ def _newton_steps(G: int) -> int:
 
 
 def reciprocal(b: MPW) -> MPW:
-    one = from_double(1.0, b.K, b.device)
+    one = const(1.0, b.K, b.device)
     r = widen(mpf.reciprocal(b.words[0]), b.K)
     for _ in range(_newton_steps(b.G)):
         r = add(r, mul(r, mpf.sub(one, mul(b, r))))
@@ -234,8 +241,8 @@ def reciprocal(b: MPW) -> MPW:
 
 
 def rsqrt(a: MPW) -> MPW:
-    half = from_double(0.5, a.K, a.device)
-    three_half = from_double(1.5, a.K, a.device)
+    half = const(0.5, a.K, a.device)
+    three_half = const(1.5, a.K, a.device)
     r = widen(mpf.rsqrt(a.words[0]), a.K)
     for _ in range(_newton_steps(a.G)):
         arr = mul(a, mul(r, r))
@@ -245,10 +252,10 @@ def rsqrt(a: MPW) -> MPW:
 
 def sqrt(a: MPW) -> MPW:
     """sqrt for a >= 0; zero gives zero, a negative input NaN."""
-    half = from_double(0.5, a.K, a.device)
+    half = const(0.5, a.K, a.device)
     top = a.words[0].limbs[0]
     is_zero = top <= 0
-    one = from_double(1.0, a.K, a.device)
+    one = const(1.0, a.K, a.device)
     a_safe = where(is_zero, broadcast_to(one, a.shape), a)
     r = rsqrt(a_safe)
     s = mul(a_safe, r)

@@ -44,8 +44,8 @@ import torch
 
 from .eft import split
 from .mpfloat import (EXP_ZERO, MUL_UNIFORM_EXP, SCALED_DTYPE, _compact_hi, _exp_bits,
-                      _normalize_scaled, _scale_pow2, center_for, mul_term_plan,
-                      mul_term_plan_full, renorm, sweeps)
+                      _normalize_scaled, _scale_pow2, center_for, device_const,
+                      mul_term_plan, mul_term_plan_full, renorm, sweeps)
 
 SVal = Tuple[torch.Tensor, torch.Tensor]
 WVal = Tuple[SVal, SVal]
@@ -210,7 +210,8 @@ def mul_full_c(a: SVal, b: SVal, K: int) -> Tuple[SVal, SVal]:
     # every term routed at once (elementwise, so the same bits as the
     # kernel's loop over the plan): hi rows in plan order, lo parts back at
     # their slots
-    plan = torch.as_tensor(mul_term_plan_full(K), dtype=torch.long, device=D.device)
+    plan = device_const(("mul_plan_full", K), D.device, lambda: torch.as_tensor(
+        mul_term_plan_full(K), dtype=torch.long, device=D.device))
     t = PE[plan]
     Dr = D[plan % (K * K)]
     keep = (_exp_bits(t) + Dr) >= 24

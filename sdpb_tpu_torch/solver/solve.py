@@ -1,12 +1,15 @@
-"""The solver run loop on the host around the iteration (port of the host
-loop of sdpb_tpu/solver/solve.py::run_solver).
+"""The solver run loops around the iteration (port of
+sdpb_tpu/solver/solve.py::run_solver and _solve_chunked, one device).
 
-The host reads back a few numbers per iteration, applies the ordered
-termination checks of compute_feasible_and_termination.cxx:20-65, heals
-conditioning failures by raising the factor precision and replaying from
-a lagged snapshot, and prints the iteration table.  The JAX package's
-device-resident chunked loop (several iterations per dispatch) is not
-ported yet.
+The default loop is the chunked one: up to `chunk` iterations run on the
+device between two host reads (on a CUDA card as replays of the captured
+iteration, solver/graphs.py), with the ordered termination checks of
+compute_feasible_and_termination.cxx:20-65 decided on the device; the host
+reads the chunk's stats rows and carry in one copy, checks maxRuntime at
+chunk boundaries, heals conditioning failures by raising the factor
+precision and replaying the chunk, and prints the iteration table.
+`chunk_iterations=1` runs the host loop: one iteration at a time, the
+termination checks on the host in exact arithmetic.
 """
 from __future__ import annotations
 
@@ -17,17 +20,16 @@ from typing import List, NamedTuple, Optional
 
 import mpmath
 import numpy as np
-import torch
 
 from ..models.sdp import DeviceSDP
 from ..ops import mpfloat as mp
-from ..ops.mpwide import MPW
 from ..utils.strings import (limbs_to_mpf, scaled_limbs_to_mpf, str_to_limbs,
                              str_to_scaled_limbs, wide_limbs_to_mpf)
 from ..utils.timers import Timers
 from .params import SolverParameters
 from .state import SolverState, initial_state
-from .step import IterationStats, StepConfig, make_iteration
+from .step import (CARRY_START, MP_FIELDS, REASON_NONE, REASON_RETRY, IterationStats,
+                   StatsLayout, StepConfig, make_iteration, pack_stats, stats_layout)
 
 
 class TerminateReason(enum.Enum):
@@ -65,39 +67,28 @@ class HostStats(NamedTuple):
     kkt_residual: float
 
 
-_MP_FIELDS = ("primal_objective", "dual_objective", "duality_gap", "mu")
-
-
-def to_host(stats: IterationStats) -> HostStats:
-    """One device-to-host copy of every field (float32 limbs and int32
-    exponents are exact in float64)."""
-    words = stats.mu.words if isinstance(stats.mu, MPW) else (stats.mu,)
-    K, scaled = words[0].K, stats.mu.scaled
-    parts = []
-    for name in IterationStats._fields:
-        v = getattr(stats, name)
-        if name in _MP_FIELDS:
-            for w in (v.words if isinstance(v, MPW) else (v,)):
-                parts.append(w.limbs.to(torch.float64))
-                if scaled:
-                    parts.append(w.exp.to(torch.float64).reshape(1))
-        else:
-            parts.append(v.to(torch.float64).reshape(1))
-    flat = torch.cat(parts).cpu().numpy()
+def unpack_stats(row: np.ndarray, layout: StatsLayout) -> HostStats:
+    """HostStats from a row of pack_stats."""
+    K, scaled = layout.K, layout.scaled
     out, pos = {}, 0
     for name in IterationStats._fields:
-        n = (K + scaled) * len(words) if name in _MP_FIELDS else 1
-        v = flat[pos:pos + n]
+        n = (K + scaled) * layout.G if name in MP_FIELDS else 1
+        v = row[pos:pos + n]
         pos += n
-        if name in _MP_FIELDS:
+        if name in MP_FIELDS:
             hw = [(w[:K].astype(np.float32), int(w[K])) if scaled else w.copy()
-                  for w in v.reshape(len(words), K + scaled)]
-            out[name] = hw if isinstance(stats.mu, MPW) else hw[0]
+                  for w in v.reshape(layout.G, K + scaled)]
+            out[name] = hw if layout.wide else hw[0]
         elif name in ("is_pd_feasible", "max_complementarity_exceeded"):
             out[name] = bool(v[0])
         else:
             out[name] = float(v[0])
     return HostStats(**out)
+
+
+def to_host(stats: IterationStats) -> HostStats:
+    """One device-to-host copy of every field."""
+    return unpack_stats(pack_stats(stats).cpu().numpy(), stats_layout(stats.mu))
 
 
 @dataclass
@@ -117,6 +108,13 @@ class SolveResult:
     # host statistics of every iteration that ran, in order (replayed
     # iterations after a factor bump included)
     history: List[HostStats] = field(default_factory=list)
+    # the chunked loop: (iterations executed, iterations run, seconds) per
+    # chunk, the capture of its CUDA graphs per factor limb count
+    # (ChunkRunner.info) and, on the card, the device ms of each replay's
+    # graph A, eigvalsh calls and graph B (ChunkRunner.replay_ms)
+    chunks: List[tuple] = field(default_factory=list)
+    graphs: dict = field(default_factory=dict)
+    replay_ms: List[tuple] = field(default_factory=list)
 
     @property
     def primal_error(self) -> float:
@@ -179,7 +177,11 @@ def print_iteration_line(it: int, elapsed: float, st: HostStats) -> None:
 
 def run_solver(sdp: DeviceSDP, params: SolverParameters, verbosity: int = 1,
                initial: Optional[SolverState] = None,
-               timers: Optional[Timers] = None) -> SolveResult:
+               timers: Optional[Timers] = None,
+               chunk_iterations: int = 0) -> SolveResult:
+    """Solve from `initial` (default: the initial point of `params`).
+    chunk_iterations: 0 runs the chunked loop in chunks of 8, n > 1 in
+    chunks of n, 1 the host loop."""
     K = sdp.b.K
     scaled = sdp.b.scaled
     timers = timers if timers is not None else Timers()
@@ -205,7 +207,18 @@ def run_solver(sdp: DeviceSDP, params: SolverParameters, verbosity: int = 1,
             infeasible_beta_limbs=parse(params.infeasible_centering_parameter),
             primal_error_threshold=float(mpmath.mpf(params.primal_error_threshold)),
             dual_error_threshold=float(mpmath.mpf(params.dual_error_threshold)),
-            max_complementarity=float(mpmath.mpf(params.max_complementarity)))
+            max_complementarity=float(mpmath.mpf(params.max_complementarity)),
+            duality_gap_threshold_limbs=parse(params.duality_gap_threshold),
+            find_primal_feasible=params.find_primal_feasible,
+            find_dual_feasible=params.find_dual_feasible,
+            detect_primal_feasible_jump=params.detect_primal_feasible_jump,
+            detect_dual_feasible_jump=params.detect_dual_feasible_jump,
+            min_primal_step=float(mpmath.mpf(params.min_primal_step)),
+            min_dual_step=float(mpmath.mpf(params.min_dual_step)))
+
+    if chunk_iterations != 1:
+        return _solve_chunked(sdp, params, state, make_cfg, factor_limbs, factor_cap,
+                              chunk_iterations or 8, verbosity, timers)
 
     cfg = make_cfg(factor_limbs)
     iteration = make_iteration(cfg)
@@ -333,3 +346,131 @@ def run_solver(sdp: DeviceSDP, params: SolverParameters, verbosity: int = 1,
         primal_error_p=perr_p, dual_error=derr, iterations=it,
         runtime=time.time() - start, iteration_seconds=iteration_seconds,
         history=history)
+
+
+# ---------------------------------------------------------------------------
+# The chunked run loop (sdpb_tpu/solver/solve.py:430-639)
+
+_REASON_MAP = {
+    1: TerminateReason.PrimalDualOptimal,
+    2: TerminateReason.DualFeasible,
+    3: TerminateReason.PrimalFeasible,
+    4: TerminateReason.DualFeasibleJumpDetected,
+    5: TerminateReason.PrimalFeasibleJumpDetected,
+    6: TerminateReason.MaxIterationsExceeded,
+    8: TerminateReason.PrimalStepTooSmall,
+    9: TerminateReason.DualStepTooSmall,
+    10: TerminateReason.MaxComplementarityExceeded,
+}
+
+
+def _solve_chunked(sdp: DeviceSDP, params: SolverParameters, state: SolverState,
+                   make_cfg, factor_limbs: int, factor_cap: int, chunk: int,
+                   verbosity: int, timers: Timers) -> SolveResult:
+    """Up to `chunk` iterations on the device between two host reads.  The
+    ten ordered termination reasons are decided on the device (comparing
+    the error norms in their own dtype, float32 in a scaled run, where the
+    host loop compares exactly); the host checks maxRuntime at chunk
+    boundaries and heals a failed iteration by raising the factor
+    precision and replaying the chunk from its start, at the cap ending
+    the run as MaxComplementarityExceeded."""
+    from .graphs import ChunkRunner
+
+    layout = stats_layout(sdp.b)
+    cfg = make_cfg(factor_limbs)
+    with timers.scope("run.initialize"):
+        runner = ChunkRunner(sdp, cfg, state, CARRY_START, chunk, params.max_iterations)
+    graphs = {factor_limbs: runner.info}
+
+    start = time.time()
+    reason = TerminateReason.MaxIterationsExceeded
+    final_row = None
+    kkt_warned = False
+    it_global = 1
+    iteration_seconds, history, chunks, replay_ms = [], [], [], []
+
+    if verbosity >= 1:
+        print("\n          time    mu     P-obj       D-obj      gap     "
+              "    P-err       p-err       D-err      P-step   D-step  beta")
+
+    while True:
+        # a heal replays the chunk from its start: a poisoned search
+        # direction corrupts the state one iteration before its statistics
+        # show it, so the stopping iteration's input may be lost already
+        chunk_start = runner.snapshot()
+        with timers.scope("run.chunk"):
+            t0 = time.time()
+            rows = runner.run()
+            dt = time.time() - t0
+        it_new, reason_code = int(rows[-1, 0]), int(rows[-1, 4])
+        stopped = reason_code != REASON_NONE
+        n_advanced = it_new - it_global
+        n_exec = n_advanced + stopped
+        stats = [unpack_stats(rows[i], layout) for i in range(n_exec)]
+        history += stats
+        iteration_seconds += [dt / max(n_exec, 1)] * n_exec
+        chunks.append((n_exec, runner.replays, dt))
+        replay_ms += runner.replay_ms
+        if verbosity >= 2:
+            print(f"  -- chunk: {n_exec} iterations in {dt:.3f} s device+sync "
+                  f"({dt / max(n_exec, 1):.4f} s/it)")
+
+        if reason_code == REASON_RETRY:
+            if factor_limbs >= factor_cap:
+                reason = TerminateReason.MaxComplementarityExceeded
+                if verbosity >= 1:
+                    print("non-finite iteration at full factor precision; "
+                          "increase --precision")
+                it_global = it_new
+                final_row = stats[-1]
+                break
+            factor_limbs += 1
+            if verbosity >= 1:
+                print(f"conditioning exceeded factor range; increasing factor "
+                      f"precision to {factor_limbs} limbs (replaying from "
+                      f"iteration {it_global})")
+            cfg = make_cfg(factor_limbs)
+            runner.close()
+            with timers.scope("run.initialize"):
+                runner = ChunkRunner(sdp, cfg, *chunk_start, chunk, params.max_iterations)
+            graphs[factor_limbs] = runner.info
+            continue
+
+        elapsed = time.time() - start
+        if verbosity >= 1:
+            for i in range(n_advanced):
+                print_iteration_line(it_global + i, elapsed, stats[i])
+            worst = max((st.kkt_residual for st in stats), default=0.0)
+            if cfg.kkt_residual_threshold > 0 and not cfg.kkt_heal and not kkt_warned \
+                    and worst > cfg.kkt_residual_threshold:
+                kkt_warned = True
+                print(f"WARNING: KKT solve residual {worst:.2e} exceeds "
+                      f"{cfg.kkt_residual_threshold:.0e} at full factor precision — "
+                      f"results may be degraded; increase --precision")
+        it_global = it_new
+        if stats:
+            final_row = stats[-1]
+        if stopped:
+            reason = _REASON_MAP[reason_code]
+            break
+        if time.time() - start >= params.max_runtime:
+            reason = TerminateReason.MaxRuntimeExceeded
+            break
+
+    state = runner.state
+    runner.close()
+    nan = mpmath.mpf("nan")
+    p_obj = d_obj = gap = nan
+    perr_P = perr_p = derr = float("nan")
+    if final_row is not None:
+        p_obj = host_mpf(final_row.primal_objective)
+        d_obj = host_mpf(final_row.dual_objective)
+        gap = host_mpf(final_row.duality_gap)
+        perr_P, perr_p = final_row.primal_error_P, final_row.primal_error_p
+        derr = final_row.dual_error
+    return SolveResult(
+        terminate_reason=reason, state=state, primal_objective=p_obj,
+        dual_objective=d_obj, duality_gap=gap, primal_error_P=perr_P,
+        primal_error_p=perr_p, dual_error=derr, iterations=it_global,
+        runtime=time.time() - start, iteration_seconds=iteration_seconds,
+        history=history, chunks=chunks, graphs=graphs, replay_ms=replay_ms)

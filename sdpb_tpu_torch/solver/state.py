@@ -28,6 +28,20 @@ class SolverState:
     buckets: List[BucketState]
 
 
+def _clone(v):
+    if isinstance(v, MPW):
+        return MPW(_clone(w) for w in v.words)
+    return MP(v.limbs.clone(), None if v.exp is None else v.exp.clone())
+
+
+def clone_state(state: SolverState) -> SolverState:
+    """A copy of a state that shares no storage with it."""
+    return SolverState(y=_clone(state.y), buckets=[
+        BucketState(**{f: _clone(getattr(b, f))
+                       for f in ("x", "X_even", "X_odd", "Y_even", "Y_odd")})
+        for b in state.buckets])
+
+
 def _omega_word(g: int, wl, we, diag_real: torch.Tensor, diag_pad: torch.Tensor) -> MP:
     """Scaled Omega I on the real diagonal (limbs wl, exponent we), or word
     g of a wide one; word 0 also carries 1.0 on the padded diagonal, on its

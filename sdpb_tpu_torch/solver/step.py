@@ -9,8 +9,15 @@ as a 2-step lax.scan; here they are a loop of two passes with the same
 form: in the predictor pass the -dX dY correction is multiplied by 0.0.
 Classic, scaled and wide states run the same code.  The scaled one keeps its
 error norms and corrector beta in float32, as the JAX package does on the
-TPU, but its step lengths in float64 (linalg.min_eigenvalue_estimate), so
-that it takes the classic run's steps.
+TPU, but its step lengths in float64 (linalg.eigvalsh_input), so that it
+takes the classic run's steps.
+
+The iteration is cut in two at the eigvalsh of the step lengths, the one
+call that checks its result on the host: `Iteration.front` runs through
+the step lengths' triangular solves, `Iteration.back` from their
+eigenvalues through the update.  The chunked run loop (port of
+make_chunked_iteration below) captures each half as a CUDA graph
+(solver/graphs.py) and decides termination on the device.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import torch
 from ..models.sdp import Bucket, DeviceSDP
 from ..ops import linalg, mpfloat as mp, mpwide
 from ..ops.mpfloat import MP
+from ..ops.mpwide import MPW
 from .state import BucketState, SolverState
 
 
@@ -44,11 +52,6 @@ def _psd_outer_masks(bucket: Bucket):
         if h > 0:
             out.append(m[:, :, None] * m[:, None, :])
     return out
-
-
-def _scalar_mp(x: float, K: int, device, scaled: bool) -> MP:
-    """A host float as an MP (wide for a scaled K beyond one word)."""
-    return mp.from_double(np.float64(x), K, device, scaled=scaled)
 
 
 def _host_mp(parts, device) -> MP:
@@ -149,7 +152,7 @@ def _schur_complement(bucket: Bucket, TXs, TYs) -> MP:
     eye = torch.eye(P, dtype=rm.dtype, device=rm.device)
     S = mp.mask_value(S, rm[:, :, None] * rm[:, None, :])
     pad_diag = (eye[None] * (1.0 - rm)[:, :, None]) > 0
-    one = _scalar_mp(1.0, S.K, S.device, S.scaled)
+    one = mp.const(1.0, S.K, S.device, S.scaled)
     return mp.where(pad_diag, mp.broadcast_to(one, S.shape), S)
 
 
@@ -195,18 +198,40 @@ def _trace_Ap(bucket: Bucket, Zs: List[MP]) -> MP:
     return total
 
 
-def _step_length_lambda(solvers, dMs: List[MP], mask: torch.Tensor):
-    """min over blocks of lambda_min(L^{-1} dM L^{-T}) at factor precision;
-    padded batch entries contribute 0."""
-    lam = None
+def _step_length_inputs(solvers, dMs: List[MP]) -> List[linalg.EigInput]:
+    """Per parity, the float64 matrix L^{-1} dM L^{-T} (at factor
+    precision) whose least eigenvalue bounds the step: every triangular
+    solve of the step length, no eigvalsh."""
+    out = []
     for sol, dM in zip(solvers, dMs):
         W = linalg.solve_lower(sol.L, mp.round_to(dM, sol.Kf))
         T = linalg.solve_lower(sol.L, W.mT)
-        lmin = linalg.min_eigenvalue_estimate(T)
+        out.append(linalg.eigvalsh_input(T))
+    return out
+
+
+def eigvalsh_all(inputs: List[linalg.EigInput]) -> List[torch.Tensor]:
+    """The eigenvalues of every step-length matrix (eager: eigvalsh checks
+    its result on the host)."""
+    return [torch.linalg.eigvalsh(x.sym) for x in inputs]
+
+
+def _lambda_from(inputs: List[linalg.EigInput], eigvals, mask: torch.Tensor):
+    """min over blocks of lambda_min; padded batch entries contribute 0."""
+    lam = None
+    for inp, w in zip(inputs, eigvals):
+        lmin = linalg.min_eigenvalue_from(inp, w)
         lmin = torch.where(mask > 0, lmin, torch.zeros_like(lmin))
         bmin = torch.min(lmin)
         lam = bmin if lam is None else torch.minimum(lam, bmin)
     return lam
+
+
+def _step_length_lambda(solvers, dMs: List[MP], mask: torch.Tensor):
+    """min over blocks of lambda_min(L^{-1} dM L^{-T}) at factor precision;
+    padded batch entries contribute 0."""
+    inputs = _step_length_inputs(solvers, dMs)
+    return _lambda_from(inputs, eigvalsh_all(inputs), mask)
 
 
 def _step_from_lambda(lam: torch.Tensor, gamma: float) -> torch.Tensor:
@@ -232,19 +257,67 @@ class StepConfig:
     # the host loop bumps the factor precision, at the cap it only warns
     kkt_residual_threshold: float = 0.0
     kkt_heal: bool = True
+    # device-side termination (make_chunked_iteration): the duality-gap
+    # threshold as host parts (see _host_mp) and the flags and step floors
+    # of compute_feasible_and_termination.cxx:20-65; None: the host loop
+    # decides termination
+    duality_gap_threshold_limbs: object = None
+    find_primal_feasible: bool = False
+    find_dual_feasible: bool = False
+    detect_primal_feasible_jump: bool = False
+    detect_dual_feasible_jump: bool = False
+    min_primal_step: float = 0.0
+    min_dual_step: float = 0.0
 
 
-def make_iteration(cfg: StepConfig):
-    """Return iteration(sdp, state) -> (stats, new_state)."""
+class Front(NamedTuple):
+    """What the iteration's back half reads of its front half: the
+    statistics but the step lengths, the search direction and the step
+    lengths' eigvalsh inputs."""
+    stats: IterationStats          # primal_step and dual_step None
+    dxs: List[MP]                  # per bucket
+    dy: MP
+    dXs: List[List[MP]]            # per bucket, per parity
+    dYs: List[List[MP]]
+    eig_inputs: List[linalg.EigInput]   # per bucket: X parities, then Y
 
-    def iteration(sdp: DeviceSDP, state: SolverState):
+
+class Iteration:
+    """iteration(sdp, state) -> (stats, new_state), in two halves: `front`
+    through the step lengths' triangular solves, `back` from their
+    eigenvalues (eigvalsh_all of front.eig_inputs) through the update.
+    The host-made constants of a config are staged once per device."""
+
+    def __init__(self, cfg: StepConfig):
+        self.cfg = cfg
+        self._consts = {}
+
+    def consts(self, sdp: DeviceSDP) -> dict:
+        """The config's host parts as MPs on the problem's device."""
+        dev = str(sdp.device)
+        c = self._consts.get(dev)
+        if c is None:
+            cfg = self.cfg
+            c = self._consts[dev] = dict(
+                beta_feas=_host_mp(cfg.feasible_beta_limbs, sdp.device),
+                beta_infeas=_host_mp(cfg.infeasible_beta_limbs, sdp.device),
+                gap_threshold=None if cfg.duality_gap_threshold_limbs is None else
+                _host_mp(cfg.duality_gap_threshold_limbs, sdp.device))
+        return c
+
+    def __call__(self, sdp: DeviceSDP, state: SolverState):
+        front = self.front(sdp, state)
+        return self.back(sdp, state, front, eigvalsh_all(front.eig_inputs))
+
+    def front(self, sdp: DeviceSDP, state: SolverState) -> Front:
+        cfg = self.cfg
         K = sdp.b.K
         dev = sdp.device
         scaled = sdp.b.scaled
         fdt = sdp.b.dtype                  # float64 classic, float32 scaled
-        beta_feas = _host_mp(cfg.feasible_beta_limbs, dev)
-        beta_infeas = _host_mp(cfg.infeasible_beta_limbs, dev)
-        one = _scalar_mp(1.0, K, dev, scaled)
+        c = self.consts(sdp)
+        beta_feas, beta_infeas = c["beta_feas"], c["beta_infeas"]
+        one = mp.const(1.0, K, dev, scaled)
         Kf, n_refine = cfg.factor_limbs, cfg.n_refine
         zs = list(zip(sdp.buckets, state.buckets))
 
@@ -333,7 +406,7 @@ def make_iteration(cfg: StepConfig):
                                 _psd_outer_masks(bk)):
                 t = mp.sum_(linalg.frobenius(mp.mask_value(X, om), Y), axis=0)
                 trXY = t if trXY is None else mp.add(trXY, t)
-        total_mp = _scalar_mp(float(cfg.total_psd_rows), K, dev, scaled)
+        total_mp = mp.const(float(cfg.total_psd_rows), K, dev, scaled)
         mu = mp.div(trXY, total_mp)
         # clamp to the limb dtype's range (1e100 overflows float32)
         max_comp = min(cfg.max_complementarity, float(torch.finfo(fdt).max))
@@ -428,11 +501,38 @@ def make_iteration(cfg: StepConfig):
                 dXs.append(bdX)
                 dYs.append(bdY)
 
+        # ---- the step lengths' triangular solves (their eigvalsh is the
+        # back half's input)
+        eig_inputs = []
+        for i in range(len(sdp.buckets)):
+            eig_inputs += _step_length_inputs(X_solvers[i], dXs[i])
+            eig_inputs += _step_length_inputs(Y_solvers[i], dYs[i])
+        stats = IterationStats(
+            primal_objective=p_obj, dual_objective=d_obj, duality_gap=duality_gap,
+            primal_error_P=primal_error_P, primal_error_p=primal_error_p,
+            dual_error=dual_error, mu=mu, primal_step=None, dual_step=None,
+            beta_corrector=mp.to_float_array(beta), is_pd_feasible=is_pd_feasible,
+            max_complementarity_exceeded=max_comp_exceeded, kkt_residual=kkt_residual)
+        return Front(stats=stats, dxs=dxs, dy=dy, dXs=dXs, dYs=dYs,
+                     eig_inputs=eig_inputs)
+
+    def back(self, sdp: DeviceSDP, state: SolverState, f: Front, eigvals):
+        cfg = self.cfg
+        K = sdp.b.K
+        scaled = sdp.b.scaled
+        zs = list(zip(sdp.buckets, state.buckets))
+        is_pd_feasible = f.stats.is_pd_feasible
+        dXs, dYs, dxs, dy = f.dXs, f.dYs, f.dxs, f.dy
+
         # ---- step lengths
         lam_p, lam_d = None, None
+        pos = 0
         for i, bk in enumerate(sdp.buckets):
-            lp = _step_length_lambda(X_solvers[i], dXs[i], bk.mask)
-            ld = _step_length_lambda(Y_solvers[i], dYs[i], bk.mask)
+            nx, ny = len(dXs[i]), len(dYs[i])
+            lp = _lambda_from(f.eig_inputs[pos:pos + nx], eigvals[pos:pos + nx], bk.mask)
+            pos += nx
+            ld = _lambda_from(f.eig_inputs[pos:pos + ny], eigvals[pos:pos + ny], bk.mask)
+            pos += ny
             lam_p = lp if lam_p is None else torch.minimum(lam_p, lp)
             lam_d = ld if lam_d is None else torch.minimum(lam_d, ld)
         primal_step = _step_from_lambda(lam_p, cfg.gamma)
@@ -462,14 +562,216 @@ def make_iteration(cfg: StepConfig):
                                            X_even=Xe, X_odd=Xo, Y_even=Ye, Y_odd=Yo))
         new_state = SolverState(y=mp.add(state.y, mp.mul(ad, dy)), buckets=new_buckets)
 
-        stats = IterationStats(
-            primal_objective=p_obj, dual_objective=d_obj, duality_gap=duality_gap,
-            primal_error_P=primal_error_P, primal_error_p=primal_error_p,
-            dual_error=dual_error, mu=mu, primal_step=primal_step,
-            dual_step=dual_step, beta_corrector=mp.to_float_array(beta),
-            is_pd_feasible=is_pd_feasible,
-            max_complementarity_exceeded=max_comp_exceeded,
-            kkt_residual=kkt_residual)
-        return stats, new_state
+        return f.stats._replace(primal_step=primal_step, dual_step=dual_step), new_state
 
-    return iteration
+
+def make_iteration(cfg: StepConfig) -> Iteration:
+    """Return iteration(sdp, state) -> (stats, new_state)."""
+    return Iteration(cfg)
+
+
+# ---------------------------------------------------------------------------
+# Statistics as one float64 row
+
+
+MP_FIELDS = ("primal_objective", "dual_objective", "duality_gap", "mu")
+
+
+def _words(v) -> tuple:
+    return v.words if isinstance(v, MPW) else (v,)
+
+
+class StatsLayout(NamedTuple):
+    """How pack_stats lays out the MP fields: G words of K limbs, each
+    followed by its exponent when scaled; `wide` for an MPW."""
+    G: int
+    K: int
+    scaled: bool
+    wide: bool
+
+    @property
+    def width(self) -> int:
+        return len(MP_FIELDS) * self.G * (self.K + self.scaled) + \
+            len(IterationStats._fields) - len(MP_FIELDS)
+
+
+def stats_layout(like) -> StatsLayout:
+    """The layout of the statistics of a problem whose values are like
+    `like` (an MP or MPW, e.g. sdp.b)."""
+    ws = _words(like)
+    return StatsLayout(len(ws), ws[0].K, like.scaled, isinstance(like, MPW))
+
+
+def pack_stats(stats: IterationStats) -> torch.Tensor:
+    """Every field as one float64 row (float32 limbs and int32 exponents
+    are exact in float64), in IterationStats order."""
+    parts = []
+    for name in IterationStats._fields:
+        v = getattr(stats, name)
+        if name in MP_FIELDS:
+            for w in _words(v):
+                parts.append(w.limbs.to(torch.float64))
+                if w.exp is not None:
+                    parts.append(w.exp.to(torch.float64).reshape(1))
+        else:
+            parts.append(v.to(torch.float64).reshape(1))
+    return torch.cat(parts)
+
+
+def state_tensors(state: SolverState) -> List[torch.Tensor]:
+    """Every tensor of a state (limbs and exponents, word by word), in a
+    fixed order."""
+    out = []
+    for v in [state.y] + [getattr(b, f) for b in state.buckets
+                          for f in ("x", "X_even", "X_odd", "Y_even", "Y_odd")]:
+        for w in _words(v):
+            out.append(w.limbs)
+            if w.exp is not None:
+                out.append(w.exp)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Device-resident chunked iteration (sdpb_tpu/solver/step.py:694-851)
+#
+# The chunked run loop runs up to `chunk` iterations between two host reads:
+# each iteration is the IPM iteration plus the ordered termination checks of
+# compute_feasible_and_termination.cxx:20-65 computed on the device.  Stop
+# semantics match the host loop: whatever stops the run (termination,
+# max-complementarity, or a failed iteration that needs a factor-precision
+# bump), the state freezes at the INPUT state of the stopping iteration
+# (the statistics describe the input state).  Iterations after a stop still
+# run on the frozen state; their rows are marked not executed.
+
+REASON_NONE = 0
+REASON_PD_OPTIMAL = 1
+REASON_DUAL_FEASIBLE = 2
+REASON_PRIMAL_FEASIBLE = 3
+REASON_DUAL_JUMP = 4
+REASON_PRIMAL_JUMP = 5
+REASON_MAX_ITER = 6
+REASON_PRIMAL_STEP_SMALL = 8
+REASON_DUAL_STEP_SMALL = 9
+REASON_MAX_COMPLEMENTARITY = 10
+REASON_RETRY = 11       # non-finite stats, exploding corrector beta or a
+                        # tripped KKT guard: the host bumps factor_limbs and
+                        # replays the chunk
+
+
+class ChunkCarry(NamedTuple):
+    """The carry of the chunked loop, as the float64 vector [5] it is
+    stored in (the last row of the chunk's stats buffer)."""
+    it: float            # 1-based index of the next iteration
+    prev_p_step: float   # the previous iteration's step lengths
+    prev_d_step: float
+    done: float          # 0 or 1
+    reason: float        # REASON_* code
+
+
+CARRY_START = ChunkCarry(1.0, 0.0, 0.0, 0.0, float(REASON_NONE))
+
+
+def _stats_finite(stats: IterationStats) -> torch.Tensor:
+    """All of the solve-critical statistics finite and the corrector beta
+    at most 1e4 (the host loop's heal trigger; scaled float32 saturates
+    where classic arithmetic gives NaN, so an exploding beta is the sign
+    there)."""
+    ok = None
+    for name in ("primal_objective", "dual_objective", "duality_gap", "mu",
+                 "primal_error_P", "primal_error_p", "dual_error", "primal_step",
+                 "dual_step"):
+        v = getattr(stats, name)
+        for t in ([w.limbs for w in _words(v)] if name in MP_FIELDS else [v]):
+            f = torch.all(torch.isfinite(t))
+            ok = f if ok is None else torch.logical_and(ok, f)
+    return torch.logical_and(ok, stats.beta_corrector <= 1e4)
+
+
+class ChunkedIteration:
+    """One iteration of the chunked loop (make_chunked_iteration's scan
+    body) on buffers it updates in place: `front` as Iteration.front,
+    `back` as Iteration.back followed by the termination checks, the
+    masked state update, the stats row and the carry.  On a CUDA device
+    each half is captured as a CUDA graph (solver/graphs.py), so neither
+    reads anything back to the host.  cfg.duality_gap_threshold_limbs must
+    be set."""
+
+    def __init__(self, cfg: StepConfig):
+        if cfg.duality_gap_threshold_limbs is None:
+            raise ValueError("the chunked iteration needs duality_gap_threshold_limbs")
+        self.cfg = cfg
+        self.iteration = Iteration(cfg)
+
+    def front(self, sdp: DeviceSDP, state: SolverState) -> Front:
+        return self.iteration.front(sdp, state)
+
+    def back(self, sdp: DeviceSDP, state: SolverState, front: Front, eigvals,
+             rows: torch.Tensor, slot: torch.Tensor,
+             max_iterations: torch.Tensor) -> None:
+        """rows [chunk + 1, width + 1] float64: row slot[0] gets this
+        iteration's packed stats and its executed flag (1 unless the loop
+        had stopped before it), and slot advances; rows[-1, :5] is the
+        ChunkCarry.  `state` takes the new state where the iteration
+        advances.  max_iterations: a float64 scalar."""
+        cfg = self.cfg
+        stats, new_state = self.iteration.back(sdp, state, front, eigvals)
+        carry = rows[-1, :5]
+        it, prev_p, prev_d, done, reason = (carry[i] for i in range(5))
+
+        primal_error = torch.maximum(stats.primal_error_P, stats.primal_error_p)
+        is_pf = primal_error < cfg.primal_error_threshold
+        is_df = stats.dual_error < cfg.dual_error_threshold
+        is_opt = mp.lt(stats.duality_gap,
+                       self.iteration.consts(sdp)["gap_threshold"])
+        # the ordered checks, first match wins (folded back to front); the
+        # flags that are off never match
+        checks = [(torch.logical_and(torch.logical_and(is_pf, is_df), is_opt),
+                   REASON_PD_OPTIMAL)]
+        if cfg.find_dual_feasible:
+            checks.append((is_df, REASON_DUAL_FEASIBLE))
+        if cfg.find_primal_feasible:
+            checks.append((is_pf, REASON_PRIMAL_FEASIBLE))
+        if cfg.detect_dual_feasible_jump:
+            checks.append((prev_d == 1.0, REASON_DUAL_JUMP))
+        if cfg.detect_primal_feasible_jump:
+            checks.append((prev_p == 1.0, REASON_PRIMAL_JUMP))
+        checks += [
+            (it > max_iterations, REASON_MAX_ITER),
+            (torch.logical_and(it > 1, prev_p < cfg.min_primal_step),
+             REASON_PRIMAL_STEP_SMALL),
+            (torch.logical_and(it > 1, prev_d < cfg.min_dual_step),
+             REASON_DUAL_STEP_SMALL),
+            # after the ordered chain (the host loop checks it after)
+            (stats.max_complementarity_exceeded, REASON_MAX_COMPLEMENTARITY),
+        ]
+        reason_now = torch.zeros_like(it)
+        for cond, code in reversed(checks):
+            reason_now = torch.where(cond, float(code), reason_now)
+        # a failed iteration preempts everything, as the host loop checks
+        # it first; a tripped KKT guard has the same cure below the cap
+        healthy = _stats_finite(stats)
+        if cfg.kkt_residual_threshold > 0 and cfg.kkt_heal:
+            healthy = torch.logical_and(
+                healthy, stats.kkt_residual <= cfg.kkt_residual_threshold)
+        reason_now = torch.where(healthy, reason_now, float(REASON_RETRY))
+
+        active = done == 0
+        stop_now = torch.logical_and(active, reason_now != REASON_NONE)
+        advance = torch.logical_and(active, reason_now == REASON_NONE)
+
+        # the stopping iteration runs but does not advance
+        for old, new in zip(state_tensors(state), state_tensors(new_state)):
+            old.copy_(torch.where(advance, new, old))
+        row = torch.cat([pack_stats(stats), active.to(torch.float64).reshape(1)])
+        rows.index_copy_(0, slot, row[None])
+        slot.add_(1)
+        carry.copy_(torch.stack([
+            it + advance.to(torch.float64),
+            torch.where(advance, stats.primal_step, prev_p),
+            torch.where(advance, stats.dual_step, prev_d),
+            torch.logical_or(done != 0, stop_now).to(torch.float64),
+            torch.where(stop_now, reason_now, reason)]))
+
+
+def make_chunked_iteration(cfg: StepConfig) -> ChunkedIteration:
+    return ChunkedIteration(cfg)

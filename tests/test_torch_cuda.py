@@ -596,3 +596,128 @@ def test_profiler_runs_on_the_card(cuda, tmp_path, capsys):
     assert tk.LAUNCHES["peak_probe"] == 6
     assert all(tk.LAUNCHES[tk.counter(n, False)] > 0 for n in tk.KERNEL_NAMES)
     assert all(r["ms"] > 0 and r["pct_of_peak"] is not None for r in rec["phases"][:-1])
+
+
+# ---------------------------------------------------------------------------
+# The chunked loop's CUDA graphs (solver/graphs.py)
+
+
+def _certificate_on(device, scaled_limbs, max_iterations=7):
+    """The certificate SDP (150 bits classic, K=3; scaled_limbs float32
+    limbs otherwise) on a device, with its parameters."""
+    from pathlib import Path
+
+    from sdpb_tpu_torch.io.sdp_zip import read_sdp
+    from sdpb_tpu_torch.models.sdp import build_device_sdp
+    from sdpb_tpu_torch.solver.params import SolverParameters
+
+    zip_ = Path(__file__).resolve().parents[1] / "fixtures" / "dim2_certificate" / "sdp.zip"
+    host = read_sdp(zip_, 4 if scaled_limbs else 3)
+    params = SolverParameters(precision=150 if not scaled_limbs else 24 * scaled_limbs - 8,
+                              duality_gap_threshold="1e-12", primal_error_threshold="1e-12",
+                              dual_error_threshold="1e-12", initial_matrix_scale_primal="1e2",
+                              initial_matrix_scale_dual="1e2", max_iterations=max_iterations)
+    return build_device_sdp(host, device, scaled_limbs), params
+
+
+def _stat_bits(v):
+    if isinstance(v, list):
+        return tuple(_stat_bits(w) for w in v)
+    if isinstance(v, tuple):
+        return (np.asarray(v[0]).tobytes(), v[1])
+    return v.tobytes() if isinstance(v, np.ndarray) else v
+
+
+@pytest.mark.parametrize("scaled_limbs", [0, 5])
+def test_graph_replays_match_the_eager_iteration(cuda, scaled_limbs):
+    """The chunked loop's replays (chunks of 3, the stop inside the third)
+    against the host loop's eager iterations on the card: every statistic,
+    the reason, the count and the final state bit for bit."""
+    from sdpb_tpu_torch.solver.solve import run_solver
+    from sdpb_tpu_torch.solver.step import state_tensors
+
+    sdp, params = _certificate_on(cuda, scaled_limbs)
+    eager = run_solver(sdp, params, verbosity=0, chunk_iterations=1)
+    graphed = run_solver(sdp, params, verbosity=0, chunk_iterations=3)
+    assert graphed.graphs and all(g["nodes"][0] > 1000 for g in graphed.graphs.values())
+    assert str(eager.terminate_reason) == str(graphed.terminate_reason)
+    assert eager.iterations == graphed.iterations == 8
+    assert len(eager.history) == len(graphed.history) == 8
+    for x, y in zip(eager.history, graphed.history):
+        for f in x._fields:
+            assert _stat_bits(getattr(x, f)) == _stat_bits(getattr(y, f)), f
+    assert all(torch.equal(a, b) for a, b in
+               zip(state_tensors(eager.state), state_tensors(graphed.state)))
+
+
+def test_heal_recaptures_on_the_card(cuda):
+    """A KKT threshold no solve meets, the factor pinned at 2 of 3 limbs:
+    the first chunk fails, the graphs are captured again at 3 limbs and the
+    chunk replays from its start; every statistic and the state equal the
+    host loop's on the card, which heals from the same iteration."""
+    from sdpb_tpu_torch.solver.solve import run_solver
+    from sdpb_tpu_torch.solver.step import state_tensors
+
+    sdp, params = _certificate_on(cuda, 0, max_iterations=3)
+    params.factor_limbs = 2
+    params.kkt_residual_threshold = "1e-300"
+    eager = run_solver(sdp, params, verbosity=0, chunk_iterations=1)
+    graphed = run_solver(sdp, params, verbosity=0, chunk_iterations=3)
+    assert sorted(graphed.graphs) == [2, 3]
+    assert graphed.iterations == eager.iterations == 4
+    assert len(graphed.history) == len(eager.history) == 5
+    for x, y in zip(eager.history, graphed.history):
+        for f in x._fields:
+            assert _stat_bits(getattr(x, f)) == _stat_bits(getattr(y, f)), f
+    assert all(torch.equal(a, b) for a, b in
+               zip(state_tensors(eager.state), state_tensors(graphed.state)))
+
+
+def _runner(cuda):
+    """A chunk runner of 4 iterations on the classic certificate."""
+    from sdpb_tpu_torch.solver import graphs, solve, state, step
+    from sdpb_tpu_torch.utils.strings import str_to_limbs
+
+    sdp, params = _certificate_on(cuda, 0)
+    parse = lambda s: str_to_limbs(s, sdp.b.K)
+    st = state.initial_state(sdp, parse("1e2"), parse("1e2"))
+    cfg = step.StepConfig(
+        total_psd_rows=sdp.total_psd_rows, gamma=0.7, feasible_beta_limbs=parse("0.1"),
+        infeasible_beta_limbs=parse("0.3"), primal_error_threshold=1e-30,
+        dual_error_threshold=1e-30, max_complementarity=1e100,
+        factor_limbs=solve.initial_factor_limbs(params, sdp.b.K)[0],
+        duality_gap_threshold_limbs=parse("1e-30"))
+    return graphs.ChunkRunner(sdp, cfg, st, step.CARRY_START, 4, 100)
+
+
+def test_replays_count_the_captured_launches(cuda):
+    """LAUNCHES after n replays is n times the launches the capture
+    recorded (and the capture itself adds none)."""
+    tk.reset_launches()
+    runner = _runner(cuda)
+    warm = dict(tk.LAUNCHES)        # the eager warm-up iteration's
+    per = runner.launches
+    assert all(per[tk.counter(n, False)] > 0 for n in tk.KERNEL_NAMES), per
+    assert warm == per
+    runner.run()
+    runner.run()
+    assert runner.replays == 4
+    assert tk.LAUNCHES == {k: warm[k] + 8 * per[k] for k in tk.LAUNCHES}
+    runner.close()
+
+
+def test_a_failed_capture_raises(cuda, monkeypatch):
+    """A host read inside the captured iteration fails the capture, which
+    raises; nothing falls back to the eager loop."""
+    from sdpb_tpu_torch.solver import step
+
+    real = step._stats_finite
+
+    def reads_back(stats):
+        ok = real(stats)
+        bool(ok)                    # a device-to-host sync
+        return ok
+
+    monkeypatch.setattr(step, "_stats_finite", reads_back)
+    with pytest.raises(RuntimeError, match="CUDA graph capture of the iteration failed"):
+        _runner(cuda)

@@ -508,7 +508,7 @@ def test_five_iterations_match_host_loop(name, monkeypatch):
     jres = jsolve.run_solver(jsdp.build_device_sdp(host), params, verbosity=0,
                              chunk_iterations=1)
     tres = tsolve.run_solver(tsdp.build_device_sdp(host, "cpu"), params,
-                             verbosity=0)
+                             verbosity=0, chunk_iterations=1)
     assert str(tres.terminate_reason) == str(jres.terminate_reason)
     assert tres.iterations == jres.iterations
     assert len(tres.history) == len(rec.rows) == 6
