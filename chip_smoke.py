@@ -68,13 +68,31 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      device ms of graph A, the eigvalsh calls and graph B; the launches of
      every kernel of the path counted in the replays (the capture's count
      per replay, plus the eager warm-up's).  These runs are the main path
-     whose launches the kernels' record reports.
+     whose launches the kernels' record reports;
+ 15. checkpoints, resume and the timing run through the CLI on the ladder:
+     classic K=5 and scaled K32=9 solved over two chunks with a checkpoint
+     at each chunk's start and the final one (two generations kept), the
+     final state saved and loaded on the card bit for bit (an element whose
+     tail the arithmetic left above half an ulp comes back re-distilled to
+     the same value), then resumed from the file (-i) and from memory
+     (run_solver(initial=...)): every statistic, the reason, the count and
+     the final state identical (within a stated tolerance if an element
+     was re-distilled), the path's kernels launched in the resumed run;
+     phase 14's wide 2x9 state saved and loaded the same way; a classic
+     call with --timingRun auto writes block_timings.json (both
+     candidates), the same call again measures nothing.  Bytes, save and
+     load seconds, ms/iteration of each candidate and the timing run's
+     wall seconds are printed.
+Every CLI call writes its checkpoints into a temporary directory (-c), and
+the ladder phases but 15 pass --timingRun never.  The ladder's zip is
+parsed once per limb count (read_sdp cached), not at every call.
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is the kernels' JSON record, and the line before that the card's name
 and power limit.  Without CUDA, or outside a checkout, the script exits
 non-zero and prints no result.
 """
 import contextlib
+import functools
 import io
 import json
 import math
@@ -92,6 +110,9 @@ LADDER = ROOT / "fixtures" / "ising_ladder_120" / "sdp.zip"
 CERTIFICATE = ROOT / "fixtures" / "dim2_certificate" / "sdp.zip"
 LADDER_ITERATIONS = 10
 WIDE_ITERATIONS = 2
+# phase 15: the checkpointed solve's --maxIterations (two chunks of 8) and
+# the resumed solves'
+CHECKPOINT_ITERATIONS, RESUME_ITERATIONS = 15, 7
 # --maxIterations of each ladder solve beside a profile (phase 13): 2 and 1
 # steady iterations, before and after it
 BRACKET_ITERATIONS = {"scaled": 2, "wide": 1}
@@ -636,8 +657,8 @@ def certificate_phase(torch, kernels, cli, dev, scaled):
         out = Path(tmp) / "out"
         kernels.reset_launches()
         t0 = time.time()
-        res = cli.run(["-s", str(CERTIFICATE), "-o", str(out), "--device", str(dev),
-                       "--precision", "150", *SOLVE_FLAGS,
+        res = cli.run(["-s", str(CERTIFICATE), "-o", str(out), "-c", str(Path(tmp) / "ck"),
+                       "--device", str(dev), "--precision", "150", *SOLVE_FLAGS,
                        "--arithmetic", "scaled" if scaled else "classic"])
         dt = time.time() - t0
         launches = dict(kernels.LAUNCHES)
@@ -756,6 +777,7 @@ def _ladder_run(torch, kernels, cli, dev, prec, iterations, check_path, chunk_it
         t0 = time.time()
         with _shape_tally(kernels) as tally:
             res = cli.run(["-s", str(LADDER), "-o", str(Path(tmp) / "out"),
+                           "-c", str(Path(tmp) / "ck"), "--timingRun", "never",
                            "--device", str(dev), *prec, *LADDER_FLAGS,
                            "--maxIterations", str(iterations)],
                           chunk_iterations=chunk_iterations)
@@ -786,8 +808,8 @@ def _ladder_run(torch, kernels, cli, dev, prec, iterations, check_path, chunk_it
         steady = statistics.median(each)
         loop = f"chunked loop, chunks {res.chunks}, s/replay"
     print(f"{' '.join(prec)} ({loop}): {res.terminate_reason}; {len(hist)} iterations "
-          f"in {sum(its):.1f} s (wall {wall:.1f} s incl. reading the zip); first "
-          f"{its[0]:.2f} s, steady median {steady:.3f} s/iteration (each: "
+          f"in {sum(its):.1f} s (wall {wall:.1f} s incl. reading the zip if not read "
+          f"before); first {its[0]:.2f} s, steady median {steady:.3f} s/iteration (each: "
           f"{' '.join(f'{t:.3f}' for t in each)}); peak device memory "
           f"{peak / 2**30:.2f} GiB; launches {launches}")
     print(f"mu: {' '.join(f'{m:.3e}' for m in mus)}")
@@ -1081,6 +1103,237 @@ def chunked_phase(torch, kernels, cli, dev):
     return out
 
 
+def _state_values(state):
+    """y and every bucket's x, X and Y of a state (MP or wide values)."""
+    return [state.y] + [getattr(b, f) for b in state.buckets
+                        for f in ("x", "X_even", "X_odd", "Y_even", "Y_odd")]
+
+
+def _redistilled(a, b) -> int:
+    """Elements of two MP (or wide) values whose limbs or exponents
+    differ; each must hold the same value exactly.  Their count."""
+    import numpy as np
+    words = list(zip(getattr(a, "words", [a]), getattr(b, "words", [b])))
+
+    def parts(w):
+        limbs = w.limbs.reshape(w.K, -1).cpu().numpy()
+        exp = (np.zeros(limbs.shape[1], np.int64) if w.exp is None
+               else w.exp.reshape(-1).cpu().numpy())
+        return limbs, exp
+
+    pa, pb = [parts(w) for w, _ in words], [parts(v) for _, v in words]
+    differ = np.zeros(pa[0][0].shape[1], bool)
+    for (la, ea), (lb, eb) in zip(pa, pb):
+        differ |= ~(np.all(la == lb, axis=0) & (ea == eb))
+
+    def value(ps, i):
+        return sum((sum((Fraction(float(x)) for x in limbs[:, i]), Fraction(0))
+                    * Fraction(2) ** int(exp[i]) for limbs, exp in ps), Fraction(0))
+
+    for i in np.nonzero(differ)[0]:
+        check(value(pa, i) == value(pb, i), f"element {i}: the checkpoint changed its value")
+    return int(differ.sum())
+
+
+def _rel_diff(mp, a, b) -> float:
+    """max |a - b| / max |b| of two MP (or wide) values, the difference
+    taken exactly in float64 limbs on the host."""
+    import torch
+    x, y = (mp.MP(torch.as_tensor(mp.host_f64_limbs(v))) for v in (a, b))
+    scale = float(mp.to_double(y).abs().max()) if y.limbs.numel() else 0.0
+    d = float(mp.to_double(mp.sub(x, y)).abs().max()) if y.limbs.numel() else 0.0
+    return d / scale if scale else d
+
+
+def _round_trip(torch, dev, tmp, label, K32, K, state):
+    """Save `state` of the ladder in `label`'s representation and load it
+    into a fresh DeviceSDP on the card.  Every element must come back bit
+    for bit, or, where the arithmetic left a tail above half an ulp,
+    re-distilled to the same value.  (the DeviceSDP, bytes, save s, load
+    s, elements re-distilled)."""
+    import numpy as np
+    from sdpb_tpu_torch.io.sdp_zip import read_sdp
+    from sdpb_tpu_torch.models.sdp import build_device_sdp
+    from sdpb_tpu_torch.solver.checkpoint import load_checkpoint, save_checkpoint
+    sdp = build_device_sdp(read_sdp(str(LADDER), K, np.float64), dev, scaled_limbs=K32)
+    ck = tmp / f"{label}.saved"
+    t0 = time.time()
+    gen = save_checkpoint(ck, sdp, state, verbosity=0)
+    save_s = time.time() - t0
+    t0 = time.time()
+    loaded = load_checkpoint(ck, sdp, verbosity=0)
+    torch.cuda.synchronize(dev)
+    load_s = time.time() - t0
+    redistilled = sum(_redistilled(a, b) for a, b in zip(_state_values(loaded),
+                                                         _state_values(state)))
+    return sdp, (ck / f"checkpoint_{gen}.npz").stat().st_size, save_s, load_s, redistilled
+
+
+def _resumes_agree(torch, mp, label, bits, from_file, from_memory, exact):
+    """The two resumed runs: identical statistics, reason, count and final
+    state when the loaded state was bit for bit the saved one; else (a
+    state re-distilled in a few elements) within the tolerance of
+    tests/test_torch_checkpoint.py, for `bits` bits of mantissa (24 K32
+    scaled, 53 K classic): MP statistics and each state array within
+    2^-(bits - 24) relative, float64 statistics within 1e-12 relative or
+    2^-(bits - 24) absolute.  Returns the largest relative difference of
+    an MP statistic or a state array (0 when identical)."""
+    import mpmath
+    from sdpb_tpu_torch.solver.solve import host_mpf
+    from sdpb_tpu_torch.solver.step import state_tensors
+    a, b = from_file, from_memory
+    check(str(a.terminate_reason) == str(b.terminate_reason) and
+          a.iterations == b.iterations and len(a.history) == len(b.history),
+          f"{label}: the resume from the file ended otherwise ({a.terminate_reason} after "
+          f"{a.iterations}) than the one from memory ({b.terminate_reason} after "
+          f"{b.iterations})")
+    diffs = [(i + 1, f) for i, (x, y) in enumerate(zip(a.history, b.history))
+             for f in x._fields if _stat_bits(getattr(x, f)) != _stat_bits(getattr(y, f))]
+    same_state = all(torch.equal(p, q) for p, q in zip(state_tensors(a.state),
+                                                       state_tensors(b.state)))
+    if exact or (not diffs and same_state):
+        check(not diffs, f"{label}: resumed statistics differ: {diffs[:8]}")
+        check(same_state, f"{label}: the final states of the two resumes differ")
+        return 0.0
+    tol = 2.0 ** -(bits - 24)
+    worst = 0.0
+    with mpmath.workprec(bits + 64):
+        for i, f in diffs:
+            x, y = getattr(a.history[i - 1], f), getattr(b.history[i - 1], f)
+            if isinstance(x, bool):
+                check(x == y, f"{label}: iteration {i} {f} differs between the resumes")
+                continue
+            if isinstance(x, float):
+                check(abs(x - y) <= max(1e-12 * abs(y), tol),
+                      f"{label}: iteration {i} {f} is {x!r} and {y!r} in the resumes")
+                continue
+            u, v = host_mpf(x), host_mpf(y)
+            err = float(abs(u - v) / abs(v)) if v else float(abs(u))
+            check(err <= tol, f"{label}: iteration {i} {f} differs by {err:.3e} between "
+                              f"the resumes")
+            worst = max(worst, err)
+    for x, y in zip(_state_values(a.state), _state_values(b.state)):
+        err = _rel_diff(mp, x, y)
+        check(err <= tol, f"{label}: the resumed states differ by {err:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
+def checkpoint_phase(torch, mp, kernels, cli, dev, wide_state, smi):
+    """Phase 15: checkpoints, resume and the timing run through the CLI on
+    the ladder.  (a) classic K=5 and scaled K32=9: a solve of
+    CHECKPOINT_ITERATIONS + 1 iterations (two chunks) with a checkpoint at
+    every chunk's start and the final one; its final state saved and
+    loaded on the card bit for bit, but for elements whose tail the
+    arithmetic left above half an ulp, which come back re-distilled to the
+    same value (checked exactly); then RESUME_ITERATIONS + 1 iterations
+    resumed from the file by the CLI (-i) and from the state in memory by
+    run_solver: every statistic, the reason, the count and the final state
+    identical when no element was re-distilled, else within
+    _resumes_agree's tolerance; the path's kernels launched in the resumed
+    CLI run.  (b) phase 14's final wide 2x9 state saved and loaded the same
+    way.  (c) the
+    timing run: a classic CLI call with --timingRun auto writes
+    block_timings.json with both candidates; the same call again measures
+    nothing and resumes.  Prints the checkpoints' bytes, save and load
+    seconds, each candidate's ms/iteration and the timing run's wall
+    seconds beside the card's name and power limit."""
+    phase("15. checkpoint, resume and timing run on the ladder: classic K=5 and scaled "
+          "K32=9 resumed from the file and from memory, the wide 2x9 state round trip, "
+          "block_timings.json written and reused")
+    from sdpb_tpu_torch.parallel.timing import CANDIDATES, TIMINGS_FILE
+    from sdpb_tpu_torch.solver.checkpoint import METADATA
+    from sdpb_tpu_torch.solver.solve import run_solver
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for label in ("classic", "scaled"):
+            ck = tmp / label
+            base = ["-s", str(LADDER), "--device", str(dev), *LADDER_PREC[label],
+                    *LADDER_FLAGS, "--timingRun", "never", "--verbosity", "0"]
+            first = cli.run(base + ["-o", str(tmp / f"{label}.out"), "-c", str(ck),
+                                    "--maxIterations", str(CHECKPOINT_ITERATIONS),
+                                    "--checkpointInterval", "0"])
+            meta = json.loads((ck / METADATA).read_text())
+            last = len(first.chunks)        # a save at each chunk's start, then the final
+            kept = sorted(p.name for p in ck.glob("checkpoint_*.npz"))
+            check((meta["current"], meta.get("backup")) == (last, last - 1) and
+                  kept == [f"checkpoint_{last - 1}.npz", f"checkpoint_{last}.npz"],
+                  f"{label}: chunks {first.chunks}, checkpoint.json {meta}, files {kept}")
+            params = cli.solver_params_from_args(cli.parse_with_param_file(
+                cli.build_parser(), base))
+            K32 = cli.limbs_for_precision(params.precision, 24) if label == "scaled" else 0
+            K = -(-(24 * K32) // 53) + 1 if K32 else cli.limbs_for_precision(params.precision)
+            sdp, nbytes, save_s, load_s, redistilled = _round_trip(
+                torch, dev, tmp, label, K32, K, first.state)
+            check((ck / kept[-1]).stat().st_size == nbytes,
+                  f"{label}: the CLI's final checkpoint and a save of its state differ in size")
+            kernels.reset_launches()
+            from_file = cli.run(base + ["-o", str(tmp / f"{label}.resumed"),
+                                        "-c", str(tmp / f"{label}.ck2"), "-i", str(ck),
+                                        "--maxIterations", str(RESUME_ITERATIONS)])
+            launches = dict(kernels.LAUNCHES)
+            params.max_iterations = RESUME_ITERATIONS
+            from_memory = run_solver(sdp, params, verbosity=0, initial=first.state)
+            bits = 24 * K32 if K32 else 53 * K
+            worst = _resumes_agree(torch, mp, label, bits, from_file, from_memory,
+                                   exact=redistilled == 0)
+            path = kernel_path(kernels, label)
+            check(all(launches[n] > 0 for n in path),
+                  f"{label}: a kernel of the path did not run in the resumed run: {launches}")
+            agree = ("identical" if worst == 0.0 else
+                     f"within {worst:.3e} relative (the tolerance 2^-{bits - 24})")
+            print(f"{label}: {len(first.history)} iterations in {len(first.chunks)} chunks, "
+                  f"checkpoints kept {kept} (current {meta['current']}, backup "
+                  f"{meta['backup']}); checkpoint {nbytes} bytes, save {save_s:.3f} s, load "
+                  f"{load_s:.3f} s; loaded state bit for bit but {redistilled} elements "
+                  f"re-distilled to the same value; {len(from_file.history)} iterations "
+                  f"resumed from the file and from memory {agree}, "
+                  f"{from_file.terminate_reason}; launches in the resumed CLI run "
+                  f"{ {n: launches[n] for n in path} }; card {smi}")
+            out[label] = {"bytes": nbytes, "save_s": save_s, "load_s": load_s,
+                          "launches": launches, "redistilled": redistilled, "worst": worst}
+
+        _, nbytes, save_s, load_s, redistilled = _round_trip(torch, dev, tmp, "wide", 17, 9,
+                                                             wide_state)
+        print(f"wide 2x9: checkpoint {nbytes} bytes, save {save_s:.3f} s, load {load_s:.3f} s; "
+              f"loaded state bit for bit but {redistilled} elements re-distilled to the same "
+              f"value; card {smi}")
+        out["wide"] = {"bytes": nbytes, "save_s": save_s, "load_s": load_s,
+                       "redistilled": redistilled}
+
+        ck = tmp / "timing"
+        argv = ["-s", str(LADDER), "-o", str(tmp / "timing.out"), "-c", str(ck),
+                "--device", str(dev), *LADDER_PREC["classic"], *LADDER_FLAGS,
+                "--maxIterations", "1", "--timingRun", "auto"]
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            cli.run(argv)
+        wall = re.search(r"timing run      : ([0-9.]+) s, chose (\w+) quant=(\d+)",
+                         text.getvalue())
+        check(wall is not None, "the CLI ran no timing run on the ladder")
+        record = json.loads((ck / TIMINGS_FILE).read_text())
+        measured = record["measured"]
+        check([(m["policy"], m["quant"]) for m in measured] == [tuple(c) for c in CANDIDATES]
+              and all(m["num_buckets"] >= 1 and m["s_per_iteration"] > 0 for m in measured),
+              f"block_timings.json: {measured}")
+        again = io.StringIO()
+        with contextlib.redirect_stdout(again):
+            cli.run(argv)
+        check("timing run" not in again.getvalue() and
+              "Loading binary checkpoint" in again.getvalue() and
+              json.loads((ck / TIMINGS_FILE).read_text()) == record,
+              "the second call with the same checkpoint directory ran the timing run again "
+              "or did not resume")
+        print(f"timing run: {float(wall.group(1)):.2f} s wall, chose {wall.group(2)} "
+              f"quant={wall.group(3)}; " + ", ".join(
+                  f"{m['policy']} quant={m['quant']} {1e3 * m['s_per_iteration']:.2f} "
+                  f"ms/iteration ({m['num_buckets']} buckets)" for m in measured)
+              + f"; the second call measured nothing and resumed; card {smi}")
+        out["timing"] = {"wall_s": float(wall.group(1)), "measured": measured}
+    return out
+
+
 def main():
     if not (ROOT / "sdpb_tpu_torch").is_dir() or not LADDER.exists() \
             or not CERTIFICATE.exists():
@@ -1094,7 +1347,11 @@ def main():
         return 2
     dev = torch.device("cuda", 0)
     from sdpb_tpu_torch.cli import sdpb as cli
+    from sdpb_tpu_torch.io import sdp_zip
     from sdpb_tpu_torch.ops import kernels, mpfloat as mp
+    # each CLI call would parse the ladder's decimal strings again (~8 s on
+    # one core); nothing here changes a problem once read
+    sdp_zip.read_sdp = functools.lru_cache(maxsize=None)(sdp_zip.read_sdp)
 
     t_start = time.time()
     smi = device_phase(torch)
@@ -1111,6 +1368,8 @@ def main():
     prows = probe_phase(torch, kernels, dev, smi)
     profiles, probe_launches = profile_phase(torch, kernels, cli, dev)
     chunked = chunked_phase(torch, kernels, cli, dev)
+    checkpoints = checkpoint_phase(torch, mp, kernels, cli, dev,
+                                   chunked["wide"]["chunked"]["result"].state, smi)
     check("jax" not in sys.modules, "the port imported jax")
     check(not any(m == "sdpb_tpu" or m.startswith("sdpb_tpu.") for m in sys.modules),
           "the port imported the JAX package")
@@ -1159,6 +1418,10 @@ def main():
           + "; ladder s/iteration host loop -> chunked "
           + ", ".join(f"{lb} {c['host']['s_per_it']:.3f} -> {c['chunked']['s_per_it']:.3f}"
                       for lb, c in chunked.items())
+          + "; checkpoints " + ", ".join(f"{lb} {c['bytes']} bytes (save {c['save_s']:.2f} s, "
+                                         f"load {c['load_s']:.2f} s)"
+                                         for lb, c in checkpoints.items() if lb != "timing")
+          + f"; timing run {checkpoints['timing']['wall_s']:.1f} s"
           + f"; total {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": record}))

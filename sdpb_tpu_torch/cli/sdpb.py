@@ -3,16 +3,21 @@
     python -m sdpb_tpu_torch.cli.sdpb -s sdp.zip --precision 216 \
         [--arithmetic classic|scaled] [--device cuda|cpu]
 
-Same solver flags and the same output files as the JAX package's CLI
-(sdpb_tpu/cli/sdpb.py).  `--arithmetic` picks the representation, which the
-JAX CLI picks by platform: classic float64 limbs (the default; any
-precision) or scaled float32 limbs with an int32 exponent per element: up
-to 9 limbs (216 bits) one scaled word, 10-18 limbs (--precision 209-424,
-covering the reference's default 400) the wide representation of two
-words of Kg limbs.  More than 18 scaled limbs (three words) are refused.
-The device defaults to `cuda` and is never chosen silently: without CUDA
-the run stops unless `--device cpu` is given.  Checkpoints are not written
-yet, and resuming one or running several processes is refused.
+The flow, flags and output files of the JAX package's CLI
+(sdpb_tpu/cli/sdpb.py) on one device: read the problem, run the timing run
+on a multi-block problem that has no block_timings.json yet, resume from
+--initialCheckpointDir (by default the checkpoint directory, sdpDir + '.ck',
+so running a command again resumes it), solve with a checkpoint every
+--checkpointInterval seconds, then the final checkpoint and the solution.
+`--arithmetic` picks the representation, which the JAX CLI picks by
+platform: classic float64 limbs (the default; any precision) or scaled
+float32 limbs with an int32 exponent per element: up to 9 limbs (216
+bits) one scaled word, 10-18 limbs (--precision 209-424, covering the
+reference's default 400) the wide representation of two words of Kg
+limbs.  More than 18 scaled limbs (three words) are refused.  The device
+defaults to `cuda` and is never chosen silently: without CUDA the run
+stops unless `--device cpu` or `--platform cpu` is given.  Running several
+processes is refused.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import torch
 
 from .common import add_solver_options, parse_with_param_file, solver_params_from_args
 
-_REFUSED = ("initialCheckpointDir", "coordinator", "numProcesses", "processId")
+_REFUSED = ("coordinator", "numProcesses", "processId")
 # two scaled words of at most 9 limbs: the wide GEMM kernel takes G = 2
 MAX_WIDE_LIMBS = 18
 
@@ -46,10 +51,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--outDir", "-o", default=None,
                    help="Output directory (default: sdpDir + '_out').")
     p.add_argument("--checkpointDir", "-c", default=None,
-                   help="Checkpoint directory (accepted; no checkpoint is "
-                        "written yet).")
+                   help="Checkpoint directory (default: sdpDir + '.ck').")
+    p.add_argument("--initialCheckpointDir", "-i", default=None,
+                   help="Directory to load the initial checkpoint from "
+                        "(default: checkpointDir).")
     p.add_argument("--noFinalCheckpoint", action="store_true",
-                   help="Accepted; no checkpoint is written yet.")
+                   help="Don't save a final checkpoint after terminating.")
     p.add_argument("--writeSolution", default="x,y",
                    help="Comma-separated list among x,y,X,Y.")
     p.add_argument("--procsPerNode", type=int, default=0,
@@ -58,9 +65,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Accepted for reference compatibility.")
     p.add_argument("--verbosity", type=int, default=1,
                    help="0 -> no output, 1 -> regular output, 2 -> debug")
-    p.add_argument("--device", default="cuda",
+    p.add_argument("--device", default=None,
                    help="torch device to solve on (default cuda; 'cpu' only "
                         "when asked for by name).")
+    p.add_argument("--platform", choices=("auto", "cpu"), default="auto",
+                   help="'cpu' solves on the CPU (--device cpu); 'auto' keeps "
+                        "--device.")
+    p.add_argument("--maxBlockMemory", type=int, default=1 << 30,
+                   help="Per-block device-memory budget in bytes, above which "
+                        "the JAX CLI shards a block over several devices; "
+                        "accepted, and on one device it changes nothing.")
+    p.add_argument("--timingRun", choices=("auto", "never"), default="auto",
+                   help="'auto' (default): when checkpointDir has no "
+                        "block_timings.json and the problem has more than one "
+                        "block, time 2 iterations under each bucketing policy, "
+                        "keep the fastest and persist the record; 'never' "
+                        "skips it (quantized buckets of 8 points).")
     p.add_argument("--arithmetic", choices=("classic", "scaled"), default="classic",
                    help="MP representation: classic float64 limbs (any "
                         "precision) or scaled float32 limbs with an int32 "
@@ -72,11 +92,19 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def resolve_device(name: str) -> torch.device:
+def resolve_device(name, platform: str = "auto") -> torch.device:
+    """The device of --device and --platform: cuda unless either asks for
+    the CPU; a CUDA device without CUDA, or a device other than the CPU
+    under --platform cpu, stops the run."""
+    if platform == "cpu":
+        if name not in (None, "cpu"):
+            raise SystemExit(f"--platform cpu contradicts --device {name}")
+        name = "cpu"
+    name = name or "cuda"
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {name}: CUDA is not available "
-                         f"(pass --device cpu to solve on the CPU)")
+                         f"(pass --device cpu or --platform cpu to solve on the CPU)")
     return device
 
 
@@ -88,7 +116,7 @@ def run(argv=None, chunk_iterations: int = 0):
     for name in _REFUSED:
         if getattr(args, name) is not None:
             raise SystemExit(f"--{name} is not supported by the PyTorch port "
-                             f"yet (no checkpoints, one process, one device)")
+                             f"yet (one process, one device)")
     params = solver_params_from_args(args)
     scaled_limbs = 0
     if args.arithmetic == "scaled":
@@ -99,17 +127,21 @@ def run(argv=None, chunk_iterations: int = 0):
                 f"float32 limbs; the port's wide representation holds at most "
                 f"{MAX_WIDE_LIMBS} (two words, --precision 424), three words "
                 f"are not ported (ROADMAP B7).  Use --arithmetic classic.")
-    device = resolve_device(args.device)
+    device = resolve_device(args.device, args.platform)
 
     from ..io.sdp_zip import read_sdp
     from ..io.solution import WriteSolution, mp_str, save_solution
     from ..models.sdp import build_device_sdp
+    from ..parallel.timing import bucketing, load_timings, save_timings, timing_run
+    from ..solver.checkpoint import load_checkpoint, save_checkpoint
     from ..solver.solve import run_solver
     from ..utils.timers import Timers
 
     sdp_path = args.sdpDir
     base = sdp_path[:-4] if sdp_path.endswith(".zip") else sdp_path
     out_dir = Path(args.outDir or (base + "_out"))
+    ck_dir = Path(args.checkpointDir or (base + ".ck"))
+    initial_ck = Path(args.initialCheckpointDir) if args.initialCheckpointDir else ck_dir
     write_solution = WriteSolution.parse(args.writeSolution)
     verbosity = args.verbosity
     if scaled_limbs:
@@ -122,6 +154,7 @@ def run(argv=None, chunk_iterations: int = 0):
         print("SDPB PyTorch solver")
         print(f"SDP directory   : {sdp_path}")
         print(f"out directory   : {out_dir}")
+        print(f"checkpoint dir  : {ck_dir}")
         if scaled_limbs > 9:
             from ..ops.mpwide import wide_config
             G, Kg = wide_config(scaled_limbs)
@@ -138,9 +171,31 @@ def run(argv=None, chunk_iterations: int = 0):
     timers = Timers()
     with timers.scope("read_sdp"):
         host = read_sdp(sdp_path, K, np.float64)
-    sdp = build_device_sdp(host, device, scaled_limbs=scaled_limbs)
-    result = run_solver(sdp, params, verbosity=verbosity, timers=timers,
-                        chunk_iterations=chunk_iterations)
+
+    # the timing run (src/sdpb/main.cxx:50-91): measured once, persisted in
+    # the checkpoint directory and reused thereafter
+    timings = load_timings(ck_dir)
+    if timings is None and args.timingRun != "never" and host.num_blocks > 1:
+        if verbosity >= 1:
+            print("no block timings found; running 2-iteration timing run "
+                  "(persisted to checkpointDir/block_timings.json)")
+        with timers.scope("timing_run"):
+            timings = timing_run(host, params, device, scaled_limbs=scaled_limbs,
+                                 verbosity=verbosity)
+        save_timings(ck_dir, timings)
+        if verbosity >= 1:
+            print(f"timing run      : {timers.elapsed['timing_run']:.3f} s, chose "
+                  f"{timings['chosen']['policy']} quant={timings['chosen']['quant']}")
+    policy, quant = bucketing(timings)
+    sdp = build_device_sdp(host, device, scaled_limbs=scaled_limbs, quant=quant,
+                           shape_policy=policy)
+    initial = load_checkpoint(initial_ck, sdp, verbosity) if initial_ck.exists() else None
+
+    def checkpoint_fn(state, it):
+        save_checkpoint(ck_dir, sdp, state, options=params.to_dict(), verbosity=verbosity)
+
+    result = run_solver(sdp, params, verbosity=verbosity, initial=initial, timers=timers,
+                        chunk_iterations=chunk_iterations, checkpoint_fn=checkpoint_fn)
 
     if verbosity >= 1:
         print(f"-----{result.terminate_reason}-----")
@@ -150,10 +205,15 @@ def run(argv=None, chunk_iterations: int = 0):
         print(f"dualityGap      = {mp_str(result.duality_gap, nd)}")
         print(f"primalError     = {mp_str(result.primal_error, nd)}")
         print(f"dualError       = {mp_str(result.dual_error, nd)}")
-        print("checkpoint      : not written (checkpoints are not ported yet)")
+    if not args.noFinalCheckpoint:
+        checkpoint_fn(result.state, result.iterations)
     save_solution(out_dir, result, sdp, write_solution, verbosity=verbosity)
     if verbosity >= 2:
         print(timers.to_json())
+        # the reference's per-rank profile at -v2 (write_timing.cxx:10-14)
+        prof_dir = Path(str(ck_dir) + ".profiling")
+        prof_dir.mkdir(parents=True, exist_ok=True)
+        timers.write_profile(prof_dir / "profiling.0")
     return result
 
 

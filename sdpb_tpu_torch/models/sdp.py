@@ -4,7 +4,8 @@ the scaled representation (float32 limbs and int32 exponents) or, beyond 9
 scaled limbs, in the wide one (ops/mpwide.py: two scaled words).
 
 Blocks with equal dim and num_points in the same `quant` band (QUANT = 8
-points by default) share a bucket; each is zero-padded to the bucket's
+points, the default "quantized" policy) or of one exact shape ("exact")
+share a bucket; each is zero-padded to the bucket's
 (num_points, h_even, h_odd) and carries element masks:
   row_mask [B, P]              1 for real constraint rows (pair, point)
   psd_mask_even/odd [B, m*h]   1 for real PSD dimensions
@@ -104,24 +105,29 @@ def _embed_blockdiag(basis_limbs: np.ndarray, dim: int) -> np.ndarray:
     return out
 
 
-def bucket_key(dim: int, num_points: int, quant: int = QUANT) -> tuple:
-    """Blocks of one dim whose point counts round up to the same multiple
-    of `quant` share a bucket (the JAX package's default "quantized"
-    policy; its timing-run policies are not ported)."""
+def bucket_key(dim: int, num_points: int, policy: str = "quantized",
+               quant: int = QUANT) -> tuple:
+    """The bucket of a block (sdpb_tpu/models/sdp.py:154-157): under
+    "quantized" blocks of one dim whose point counts round up to the same
+    multiple of `quant` share a bucket; under "exact" each exact shape has
+    its own."""
+    if policy == "exact":
+        return (dim, num_points, "exact")
     return (dim, -(-num_points // quant) * quant)
 
 
 def build_device_sdp(sdp: SDPData, device, scaled_limbs: int = 0,
-                     quant: int = QUANT) -> DeviceSDP:
-    """Bucket the host blocks by quantized shape, zero-pad each block to
-    its bucket's shape, and stage everything to `device`.  The host SDPData
+                     quant: int = QUANT, shape_policy: str = "quantized") -> DeviceSDP:
+    """Bucket the host blocks by shape, zero-pad each block to its
+    bucket's shape, and stage everything to `device`.  The host SDPData
     must hold float64 limbs.  scaled_limbs = 0 stages them as classic
     float64 MP tensors; scaled_limbs = K32 > 0 converts them exactly into
     the scaled representation with K32 float32 limbs (the host then needs
     at least ceil(24 K32 / 53) + 1 limbs), as sdpb_tpu's
     build_device_sdp(..., scaled_limbs=K32); K32 > 9 stages wide values
-    (mpwide.f64_limbs_to_wide_parts, word by word).  `quant` is the
-    bucketing band of bucket_key."""
+    (mpwide.f64_limbs_to_wide_parts, word by word).  `shape_policy` and
+    `quant` are bucket_key's (the timing run, parallel/timing.py, picks
+    them)."""
     device = torch.device(device)
     if np.asarray(sdp.b).dtype != np.float64:
         raise TypeError("the port stages float64 host limbs")
@@ -149,7 +155,8 @@ def build_device_sdp(sdp: SDPData, device, scaled_limbs: int = 0,
 
     groups: Dict[tuple, List] = {}
     for blk in sdp.blocks:
-        groups.setdefault(bucket_key(blk.dim, blk.num_points, quant), []).append(blk)
+        groups.setdefault(bucket_key(blk.dim, blk.num_points, shape_policy, quant),
+                          []).append(blk)
 
     buckets = []
     for _, blks in sorted(groups.items(), key=lambda kv: str(kv[0])):

@@ -289,6 +289,19 @@ def scaled_parts_to_f64_limbs(limbs: np.ndarray, exp: np.ndarray,
     return out
 
 
+def f64_limbs_to_classic(limbs64: np.ndarray, K: int) -> np.ndarray:
+    """Float64 limb stack [K64, *shape] -> K classic float64 limbs,
+    re-distilled (sdpb_tpu/ops/mpfloat.py:527): loads a checkpoint written
+    at another precision."""
+    res = [np.asarray(x, np.float64) for x in limbs64]
+    out = np.zeros((K,) + np.shape(limbs64)[1:])
+    for k in range(K):
+        res = _distill(res)
+        out[k] = res[0]
+        res[0] = res[0] - out[k]
+    return out
+
+
 def host_f64_limbs(a: MP, K64: int = 0) -> np.ndarray:
     """Host float64 limb stack [K64, *shape] of any MP, re-distilled to K64
     limbs (default: enough for the full mantissa, K + 1 classic and

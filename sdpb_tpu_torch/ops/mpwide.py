@@ -418,17 +418,6 @@ def wide_parts_to_mp(parts, device) -> MPW:
     return MPW(mpf.from_parts(l, e, device) for l, e in parts)
 
 
-def _f64_limbs_to_classic(limbs64: np.ndarray, K: int) -> np.ndarray:
-    """Float64 limb stack -> K renormalized float64 limbs (mpfloat.py:527)."""
-    res = [np.asarray(x, np.float64) for x in limbs64]
-    out = np.zeros((K,) + limbs64.shape[1:], dtype=np.float64)
-    for k in range(K):
-        res = mpf._distill(res)
-        out[k] = res[0]
-        res[0] = res[0] - out[k]
-    return out
-
-
 def host_f64_limbs(a: MPW, K64: int = 0) -> np.ndarray:
     """An MPW as a classic float64 limb stack (solution files), exact
     within float64's range as for a scaled word."""
@@ -439,4 +428,4 @@ def host_f64_limbs(a: MPW, K64: int = 0) -> np.ndarray:
         back = mpf.scaled_parts_to_f64_limbs(w.limbs.detach().cpu().numpy(),
                                              w.exp.detach().cpu().numpy(), per_word)
         rows += list(back)
-    return _f64_limbs_to_classic(np.stack(rows, 0), K64)
+    return mpf.f64_limbs_to_classic(np.stack(rows, 0), K64)

@@ -64,7 +64,9 @@ class ChunkRunner:
     vector on the device) are where it starts; `run()` returns the host
     copy of the stats rows, the last row holding the carry in its first 5
     entries (one device-to-host copy).  On the CPU a chunk ends early once
-    the loop has stopped."""
+    the loop has stopped.  Between two run() calls `state` holds the state
+    the next chunk starts from, and may be read (a checkpoint) but not
+    replaced: the graphs update those tensors in place."""
 
     def __init__(self, sdp: DeviceSDP, cfg: StepConfig, state: SolverState,
                  carry, chunk: int, max_iterations: int):

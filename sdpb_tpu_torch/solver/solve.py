@@ -9,14 +9,17 @@ reads the chunk's stats rows and carry in one copy, checks maxRuntime at
 chunk boundaries, heals conditioning failures by raising the factor
 precision and replaying the chunk, and prints the iteration table.
 `chunk_iterations=1` runs the host loop: one iteration at a time, the
-termination checks on the host in exact arithmetic.
+termination checks on the host in exact arithmetic.  Either loop hands its
+state to `checkpoint_fn` once `checkpointInterval` seconds have passed
+since the last checkpoint: the host loop before an iteration, the chunked
+loop before a chunk, as the JAX package's loops do.
 """
 from __future__ import annotations
 
 import enum
 import time
 from dataclasses import dataclass, field
-from typing import List, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import mpmath
 import numpy as np
@@ -178,10 +181,13 @@ def print_iteration_line(it: int, elapsed: float, st: HostStats) -> None:
 def run_solver(sdp: DeviceSDP, params: SolverParameters, verbosity: int = 1,
                initial: Optional[SolverState] = None,
                timers: Optional[Timers] = None,
-               chunk_iterations: int = 0) -> SolveResult:
+               chunk_iterations: int = 0,
+               checkpoint_fn: Optional[Callable] = None) -> SolveResult:
     """Solve from `initial` (default: the initial point of `params`).
     chunk_iterations: 0 runs the chunked loop in chunks of 8, n > 1 in
-    chunks of n, 1 the host loop."""
+    chunks of n, 1 the host loop.  checkpoint_fn(state, iteration), when
+    given, is called at most every params.checkpoint_interval seconds, with
+    the state the next iteration (or chunk) starts from."""
     K = sdp.b.K
     scaled = sdp.b.scaled
     timers = timers if timers is not None else Timers()
@@ -218,7 +224,7 @@ def run_solver(sdp: DeviceSDP, params: SolverParameters, verbosity: int = 1,
 
     if chunk_iterations != 1:
         return _solve_chunked(sdp, params, state, make_cfg, factor_limbs, factor_cap,
-                              chunk_iterations or 8, verbosity, timers)
+                              chunk_iterations or 8, verbosity, timers, checkpoint_fn)
 
     cfg = make_cfg(factor_limbs)
     iteration = make_iteration(cfg)
@@ -230,6 +236,7 @@ def run_solver(sdp: DeviceSDP, params: SolverParameters, verbosity: int = 1,
     min_d_step = mpmath.mpf(params.min_dual_step)
 
     start = time.time()
+    last_checkpoint = start
     prev_p_step, prev_d_step = 0.0, 0.0
     reason = TerminateReason.MaxIterationsExceeded
     nan = mpmath.mpf("nan")
@@ -248,6 +255,10 @@ def run_solver(sdp: DeviceSDP, params: SolverParameters, verbosity: int = 1,
     # state up to 8 iterations old
     snap = (state, it, prev_p_step, prev_d_step)
     while True:
+        if checkpoint_fn is not None and \
+                time.time() - last_checkpoint >= params.checkpoint_interval:
+            checkpoint_fn(state, it)
+            last_checkpoint = time.time()
         with timers.scope("run.iteration"):
             t_it = time.time()
             stats, new_state = iteration(sdp, state)
@@ -366,14 +377,19 @@ _REASON_MAP = {
 
 def _solve_chunked(sdp: DeviceSDP, params: SolverParameters, state: SolverState,
                    make_cfg, factor_limbs: int, factor_cap: int, chunk: int,
-                   verbosity: int, timers: Timers) -> SolveResult:
+                   verbosity: int, timers: Timers,
+                   checkpoint_fn: Optional[Callable]) -> SolveResult:
     """Up to `chunk` iterations on the device between two host reads.  The
     ten ordered termination reasons are decided on the device (comparing
     the error norms in their own dtype, float32 in a scaled run, where the
     host loop compares exactly); the host checks maxRuntime at chunk
     boundaries and heals a failed iteration by raising the factor
     precision and replaying the chunk from its start, at the cap ending
-    the run as MaxComplementarityExceeded."""
+    the run as MaxComplementarityExceeded.  A checkpoint reads the
+    runner's state buffers between chunks, after run()'s host copy has
+    synchronized, so no capture sees it and the next replay reads the
+    same buffers; after a heal the test runs again, on the state the
+    chunk is replayed from."""
     from .graphs import ChunkRunner
 
     layout = stats_layout(sdp.b)
@@ -383,6 +399,7 @@ def _solve_chunked(sdp: DeviceSDP, params: SolverParameters, state: SolverState,
     graphs = {factor_limbs: runner.info}
 
     start = time.time()
+    last_checkpoint = start
     reason = TerminateReason.MaxIterationsExceeded
     final_row = None
     kkt_warned = False
@@ -394,6 +411,10 @@ def _solve_chunked(sdp: DeviceSDP, params: SolverParameters, state: SolverState,
               "    P-err       p-err       D-err      P-step   D-step  beta")
 
     while True:
+        if checkpoint_fn is not None and \
+                time.time() - last_checkpoint >= params.checkpoint_interval:
+            checkpoint_fn(runner.state, it_global)
+            last_checkpoint = time.time()
         # a heal replays the chunk from its start: a poisoned search
         # direction corrupts the state one iteration before its statistics
         # show it, so the stopping iteration's input may be lost already

@@ -34,3 +34,9 @@ class Timers:
         return json.dumps(
             [{"name": k, "elapsed_s": v, "count": self.counts.get(k, 1)}
              for k, v in self.items()], indent=1)
+
+    def write_profile(self, path) -> None:
+        """The timers' JSON in a file (the -v2 profile,
+        <checkpointDir>.profiling/profiling.<process>)."""
+        with open(path, "w") as f:
+            f.write(self.to_json())

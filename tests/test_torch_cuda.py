@@ -673,6 +673,32 @@ def test_heal_recaptures_on_the_card(cuda):
                zip(state_tensors(eager.state), state_tensors(graphed.state)))
 
 
+@pytest.mark.parametrize("scaled_limbs", [0, 5])
+def test_resume_from_file_equals_resume_from_memory(cuda, scaled_limbs, tmp_path):
+    """A checkpoint of the chunked loop's final state on the card loads
+    back bit for bit, and 4 iterations resumed from it equal 4 resumed from
+    the state in memory: every statistic, the reason and the state."""
+    from sdpb_tpu_torch.solver.checkpoint import load_checkpoint, save_checkpoint
+    from sdpb_tpu_torch.solver.solve import run_solver
+    from sdpb_tpu_torch.solver.step import state_tensors
+
+    sdp, params = _certificate_on(cuda, scaled_limbs, max_iterations=4)
+    first = run_solver(sdp, params, verbosity=0)
+    save_checkpoint(tmp_path, sdp, first.state, verbosity=0)
+    loaded = load_checkpoint(tmp_path, sdp, verbosity=0)
+    assert all(torch.equal(a, b) for a, b in
+               zip(state_tensors(loaded), state_tensors(first.state)))
+    from_file = run_solver(sdp, params, verbosity=0, initial=loaded)
+    from_memory = run_solver(sdp, params, verbosity=0, initial=first.state)
+    assert str(from_file.terminate_reason) == str(from_memory.terminate_reason)
+    assert len(from_file.history) == len(from_memory.history) == 5
+    for x, y in zip(from_file.history, from_memory.history):
+        for f in x._fields:
+            assert _stat_bits(getattr(x, f)) == _stat_bits(getattr(y, f)), f
+    assert all(torch.equal(a, b) for a, b in
+               zip(state_tensors(from_file.state), state_tensors(from_memory.state)))
+
+
 def _runner(cuda):
     """A chunk runner of 4 iterations on the classic certificate."""
     from sdpb_tpu_torch.solver import graphs, solve, state, step

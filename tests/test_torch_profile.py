@@ -218,7 +218,8 @@ def test_build_device_sdp_buckets_like_jax(quant):
                   "mask", "row_mask", "psd_mask_even", "psd_mask_odd"):
             a, b = limbs_of(getattr(pb, f)), limbs_of(getattr(rb, f))
             assert a.shape == b.shape and np.array_equal(a, b), f
-    assert tsdp.bucket_key(2, 17, quant) == jsdp.bucket_key(2, 17, "quantized", quant)
+    assert tsdp.bucket_key(2, 17, "quantized", quant) == \
+        jsdp.bucket_key(2, 17, "quantized", quant)
     assert tsdp.bucket_key(2, 17) == (2, 24)
 
 

@@ -531,11 +531,12 @@ def test_cli_on_cpu_matches_jax(tmp_path, monkeypatch):
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-m", "sdpb_tpu_torch.cli.sdpb", "--device", "cpu",
-         "-o", str(tmp_path / "port"), *args],
+         "-o", str(tmp_path / "port"), "-c", str(tmp_path / "ck"), *args],
         capture_output=True, text=True, env=env, cwd=str(REPO), timeout=600)
     assert proc.returncode == 0, proc.stderr
     assert "maxIterations exceeded" in proc.stdout
-    assert "checkpoint      : not written" in proc.stdout
+    assert f"Saving checkpoint to    : {tmp_path / 'ck'}" in proc.stdout
+    assert (tmp_path / "ck" / "checkpoint_0.npz").exists()
 
     monkeypatch.setattr(jsolve, "jax", _RecordingJax(_jax_iteration("cert_K3")[1]))
     _, params, K = _problem("cert_K3")
@@ -578,7 +579,7 @@ def test_scaled_cli_on_cpu_matches_jax(tmp_path, monkeypatch):
     proc = subprocess.run(
         [sys.executable, "-m", "sdpb_tpu_torch.cli.sdpb", "--device", "cpu",
          "--arithmetic", "scaled", "-s", str(sdp_zip), "-o", str(tmp_path / "port"),
-         "--precision", "64", "--maxIterations", "3", "--dualityGapThreshold", "1e-12",
+         "-c", str(tmp_path / "ck"), "--precision", "64", "--maxIterations", "3", "--dualityGapThreshold", "1e-12",
          "--primalErrorThreshold", "1e-12", "--dualErrorThreshold", "1e-12",
          "--initialMatrixScalePrimal", "1e2", "--initialMatrixScaleDual", "1e2"],
         capture_output=True, text=True, env=env, cwd=str(REPO), timeout=600)
@@ -603,7 +604,7 @@ def test_scaled_cli_on_cpu_matches_jax(tmp_path, monkeypatch):
     assert (tmp_path / "port" / "y.txt").read_text().splitlines()[0] == "1 1"
 
 
-def test_scaled_cli_refuses_the_wide_path_and_a_missing_card():
+def test_scaled_cli_refuses_the_wide_path_and_a_missing_card(tmp_path):
     """Above 18 float32 limbs (--precision > 424, three wide words) the
     scaled CLI stops and names the unported three-word path; --device cuda
     without CUDA stops too."""
@@ -615,12 +616,13 @@ def test_scaled_cli_refuses_the_wide_path_and_a_missing_card():
     assert cli.limbs_for_precision(425, 24) == 19
     for prec in ("425", "600"):
         with pytest.raises(SystemExit, match="ROADMAP B7"):
-            cli.run(["-s", str(CERTIFICATE), "--arithmetic", "scaled", "--device", "cpu",
-                     "--precision", prec])
+            cli.run(["-s", str(CERTIFICATE), "-c", str(tmp_path / "ck"), "--arithmetic",
+                     "scaled", "--device", "cpu", "--precision", prec])
     if not torch.cuda.is_available():
         for arith in ("classic", "scaled"):
             with pytest.raises(SystemExit, match="CUDA is not available"):
-                cli.run(["-s", str(CERTIFICATE), "--arithmetic", arith])
+                cli.run(["-s", str(CERTIFICATE), "-c", str(tmp_path / "ck"),
+                         "--arithmetic", arith])
 
 
 def test_wide_cli_on_cpu(tmp_path):
@@ -637,7 +639,8 @@ def test_wide_cli_on_cpu(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "sdpb_tpu_torch.cli.sdpb", "--device", "cpu",
          "--arithmetic", "scaled", "-s", str(tmp_path / "sdp.zip"),
-         "-o", str(tmp_path / "out"), "--precision", "216", "--maxIterations", "1",
+         "-o", str(tmp_path / "out"), "-c", str(tmp_path / "ck"), "--timingRun", "never",
+         "--precision", "216", "--maxIterations", "1",
          "--initialMatrixScalePrimal", "1e2", "--initialMatrixScaleDual", "1e2",
          "--factorLimbs", "3"],
         capture_output=True, text=True, env=env, cwd=str(REPO), timeout=600)
@@ -688,10 +691,9 @@ def test_kkt_guard_heals_then_warns(capsys):
 def test_cli_refuses_what_is_not_ported(tmp_path):
     from sdpb_tpu_torch.cli import sdpb as cli
 
-    for extra in (["--initialCheckpointDir", str(tmp_path)],
-                  ["--numProcesses", "2"]):
-        with pytest.raises(SystemExit, match="not supported"):
-            cli.run(["-s", str(LADDER), "--device", "cpu", *extra])
+    with pytest.raises(SystemExit, match="not supported"):
+        cli.run(["-s", str(LADDER), "-c", str(tmp_path / "ck"), "--device", "cpu",
+                 "--numProcesses", "2"])
 
 
 _GUARD = r"""
@@ -708,12 +710,25 @@ import sdpb_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(sdpb_tpu_torch.__path__, "sdpb_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in ("parallel.planner", "parallel.timing", "solver.checkpoint"):
+    assert "sdpb_tpu_torch." + name in names, name
 from sdpb_tpu_torch.cli import sdpb as cli
 for arith in ("classic", "scaled"):
     res = cli.run(["-s", sys.argv[1], "-o", sys.argv[2] + "/" + arith, "--device", "cpu",
-                   "--precision", "64", "--arithmetic", arith, "--maxIterations", "2",
-                   "--verbosity", "0"])
+                   "-c", sys.argv[2] + "/" + arith + ".ck", "--precision", "64",
+                   "--arithmetic", arith, "--maxIterations", "2", "--verbosity", "0"])
     assert str(res.terminate_reason) == "maxIterations exceeded", res.terminate_reason
+# a resume from the checkpoint, and the timing run on a two-block problem
+from sdpb_tpu_torch.solver.checkpoint import load_checkpoint
+from sdpb_tpu_torch.parallel.timing import timing_run
+from sdpb_tpu_torch.io.sdp_zip import read_sdp
+from sdpb_tpu_torch.models.sdp import build_device_sdp
+host = read_sdp(sys.argv[1], 2)
+assert load_checkpoint(sys.argv[2] + "/classic.ck", build_device_sdp(host, "cpu"),
+                       verbosity=0) is not None
+host.blocks.append(host.blocks[0])
+params = cli.solver_params_from_args(cli.build_parser().parse_args(["-s", sys.argv[1]]))
+assert timing_run(host, params, "cpu", verbosity=0)["chosen"]["policy"] in ("quantized", "exact")
 # the wide path: staging, a wide product through the GEMM wrapper, a division
 import numpy as np
 from sdpb_tpu_torch.ops import kernels, linalg, mpfloat as mp, mpwide
@@ -757,15 +772,17 @@ def _jax_package_references(path: Path, root: Path = REPO) -> list:
 
 def test_port_never_imports_jax(tmp_path):
     """With jax and the JAX package blocked at import, every module of the
-    port (the wide ones included) imports, the CLI solves (2 iterations of
-    the certificate, classic and scaled) and the wide ops run; no source of the port, nor chip_smoke.py,
-    names the JAX package as a module."""
+    port (the wide ones, parallel/ and solver/checkpoint.py included)
+    imports, the CLI solves (2 iterations of the certificate, classic and
+    scaled, each with its final checkpoint), a checkpoint loads, the timing
+    run runs and the wide ops run; no source of the port, nor
+    chip_smoke.py, names the JAX package as a module."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _GUARD, str(CERTIFICATE), str(tmp_path)],
                           capture_output=True, text=True, env=env, cwd=str(REPO),
                           timeout=600)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 22
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 26
     sources = sorted((REPO / "sdpb_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) >= 20
     found = [f for p in sources for f in _jax_package_references(p)]
