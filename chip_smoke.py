@@ -82,7 +82,20 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      call with --timingRun auto writes block_timings.json (both
      candidates), the same call again measures nothing.  Bytes, save and
      load seconds, ms/iteration of each candidate and the timing run's
-     wall seconds are printed.
+     wall seconds are printed;
+ 16. the tools that drive the solver: the ladder solved to optimality
+     (classic, 216 bits, gap 1e-20) with x, y, X and Y written, then
+     approx_objective of the perturbed ladder (fixtures/ising_ladder_120/
+     sdp_perturbed.zip: its PMP perturbed by 1e-8) from that solution in
+     the scaled (208 bits), wide (400 bits) and classic (216 bits)
+     representations, each launching its path's kernels, classic again from
+     its solver_state.npz to the same JSON; the perturbed ladder re-solved
+     and the quadratic approximation held to it, scaled and wide held to
+     classic; outer_limits, its functions made by the port's sdp2functions,
+     on the dim-2 certificate to the bisected optimum and on the first
+     OUTER_BLOCKS ladder blocks (N = 15, degree 18) against the JAX
+     package's committed out.json, with every solve's host, solve and
+     capture seconds.
 Every CLI call writes its checkpoints into a temporary directory (-c), and
 the ladder phases but 15 pass --timingRun never.  The ladder's zip is
 parsed once per limb count (read_sdp cached), not at every call.
@@ -119,6 +132,37 @@ BRACKET_ITERATIONS = {"scaled": 2, "wide": 1}
 # the ladder solve's GEMM shapes: the pairing products and the Q product
 GEMM_SHAPES = ((120, 20, 20, 19), (120, 15, 57, 15))
 Y_OPT = "-1.685650770619604657526474"   # bisected independently in mpmath
+# phase 16: the perturbed ladder (sdp2input at 256 bits of the ladder's
+# PMP with its objective and every polynomial coefficient times 1 + 1e-8 r,
+# r standard normal, tests/torch_parity.py::perturbed_pmp with seed 9: b, c
+# and B move along the polynomial structure; a random perturbation of c at
+# the sample points leaves the ladder infeasible, one of B moves its optimum
+# by 0.34, both at 1e-12), the PMPs the port's sdp2functions makes
+# outer_limits' functions from, and the JAX package's outer_limits out.json
+# for the first OUTER_BLOCKS ladder blocks
+LADDER_PERTURBED = ROOT / "fixtures" / "ising_ladder_120" / "sdp_perturbed.zip"
+LADDER_PMP = ROOT / "fixtures" / "ising_ladder_120" / "pmp.json"
+CERTIFICATE_PMP = ROOT / "fixtures" / "dim2_certificate" / "pmp.json"
+OUTER_BLOCKS = 16
+LADDER_OUTER = ROOT / "fixtures" / "ising_ladder_120" / f"outer_limits_jax_{OUTER_BLOCKS}.json"
+# the quadratic approximation against the re-solve: its error is the
+# third-order term, ~1.8e3 times the perturbation cubed (1.78e-21 measured),
+# plus the solves' distance from their optima (gap 1e-20); the linear error
+# (1.06e-16 measured) must exceed the bound 100 times
+QUAD_BOUND = 1e-19
+# scaled (208 bits) and wide (400 bits) approx_objective against classic
+# (216 bits), relative: the objective, its linear term and the objective
+# without the quadratic term.  The frozen Schur solve at gap 1e-20 needs
+# ~3 log10(1/gap) digits; the scaled product's ~188 bits fall short (its
+# quadratic term came out -4.8e-4 for classic's -1.06e-16), the CLI warns
+# so, and scaled is held on the parts that involve no solve
+APPROX_REL = {"scaled": {"d_objective": 1e-30, "linear": 1e-30},
+              "wide": {"objective": 1e-24, "d_objective": 1e-30, "linear": 1e-30}}
+OUTER_FLAGS = ("--primalErrorThreshold", "1e-10", "--dualErrorThreshold", "1e-10",
+               "--maxIterations", "500", "--verbosity", "0")
+# the final gap threshold: the certificate's, and the ladder blocks' (the
+# JAX run of LADDER_OUTER: each solve costs ~20 s of host mpmath)
+OUTER_GAP = {"certificate": "1e-10", "ladder": "1e-6"}
 # (name, source, TPU kernel replaced): the classic build replaces the
 # scaled=False branch of each Pallas kernel, the scaled build (the same
 # source over csrc/mp_scaled.cuh) its scaled=True branch
@@ -1334,9 +1378,214 @@ def checkpoint_phase(torch, mp, kernels, cli, dev, wide_state, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the tools that drive the solver
+
+
+def _approx_run(kernels, acli, label, argv):
+    """One approx_objective CLI call: (results, timings, launches), the
+    counts set to 0 just before it and read just after."""
+    timings = {}
+    kernels.reset_launches()
+    res = acli.run(argv, timings=timings)
+    return res, timings, dict(kernels.LAUNCHES)
+
+
+def _outer_run(torch, kernels, ocli, label, argv):
+    rounds = []
+    kernels.reset_launches()
+    t0 = time.time()
+    out = ocli.run(argv, rounds=rounds)
+    wall = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    check(all(launches[n] > 0 for n in kernel_path(kernels, "classic")),
+          f"outer_limits {label}: a kernel did not run: {launches}")
+    for i, r in enumerate(rounds):
+        print(f"outer_limits {label} solve {i + 1}: {r['constraints']} constraints, threshold "
+              f"{r['threshold']}, {r['iterations']} iterations, {r['reason']}; host "
+              f"{r['host_s']:.2f} s, solve {r['solve_s']:.2f} s of which capture "
+              f"{r['capture_s']:.2f} s")
+    host = sum(r["host_s"] for r in rounds)
+    solve = sum(r["solve_s"] for r in rounds)
+    capture = sum(r["capture_s"] for r in rounds)
+    print(f"outer_limits {label}: optimal {out['optimal'][:40]}; {len(rounds)} solves in "
+          f"{wall:.1f} s (host {host:.1f} s, solves {solve:.1f} s of which capture "
+          f"{capture:.1f} s); launches {launches}")
+    return {"out": out, "rounds": rounds, "seconds": wall, "host_s": host, "solve_s": solve,
+            "capture_s": capture, "launches": launches}
+
+
+def tools_phase(torch, mp, kernels, cli, dev, smi):
+    """Phase 16: approx_objective and outer_limits (with sdp2functions as
+    its front end).  (a) The ladder solved to optimality (216 bits classic,
+    Omega 1e4, gap 1e-20) with x, y, X and Y written; approx_objective of
+    the perturbed ladder from that solution in the scaled (208 bits), wide
+    (400 bits) and classic (216 bits) representations, each launching its
+    path's kernels, the CLI's precision warning given for scaled (whose
+    ~188 bits fall short of the quadratic term's ~3 log2(1/gap)) and for
+    no other, classic with --writeSolverState, then classic again
+    loading solver_state.npz to the same JSON; the perturbed ladder
+    re-solved classic, and classic approx_objective held to it within
+    QUAD_BOUND, its linear part off by more than 100 QUAD_BOUND; scaled and
+    wide held to classic within APPROX_REL; the setup's S and Q factor times
+    at Kf = K.  (b) outer_limits on the certificate's functions (the port's
+    sdp2functions at 150 bits from its PMP) to the bisected optimum within
+    1e-9, and on the first OUTER_BLOCKS ladder blocks (sdp2functions at 216
+    bits, full N = 15 and degree 18; outer_limits at 150 bits) against the
+    JAX package's out.json, each solve's host, solve and capture seconds
+    printed."""
+    phase(f"16. approx_objective on the ladder (classic, scaled, wide) and outer_limits on "
+          f"the certificate and {OUTER_BLOCKS} ladder blocks")
+    import mpmath
+    from sdpb_tpu_torch.cli import approx_objective as acli, outer_limits as ocli, sdp2functions
+    from sdpb_tpu_torch.solver.solve import host_mpf
+    from sdpb_tpu_torch.tools import approx_objective as tao
+    out = {"approx": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        sol = tmp / "ladder_out"
+        t0 = time.time()
+        res = cli.run(["-s", str(LADDER), "-o", str(sol), "-c", str(tmp / "ck"),
+                       "--timingRun", "never", "--device", str(dev), *LADDER_PREC["classic"],
+                       *LADDER_FLAGS, "--writeSolution", "x,y,X,Y", "--verbosity", "0"])
+        solve_s = time.time() - t0
+        check(str(res.terminate_reason) == "found primal-dual optimal solution",
+              f"the ladder solve ended with {res.terminate_reason}")
+        print(f"ladder solved classic 216 bits: {res.iterations} iterations in {solve_s:.1f} s, "
+              f"dual objective {mpmath.nstr(res.dual_objective, 30)}")
+        base = ["--sdp", str(LADDER), "--newSdp", str(LADDER_PERTURBED), "--solutionDir",
+                str(sol), "--device", str(dev)]
+        for label in ("scaled", "wide", "classic"):
+            extra = ["--writeSolverState"] if label == "classic" else []
+            t0 = time.time()
+            r, timings, launches = _approx_run(kernels, acli, label,
+                                               base + list(LADDER_PREC[label]) + extra)
+            wall = time.time() - t0
+            path = kernel_path(kernels, label)
+            check(timings["frozen"] == "setup" and all(launches[n] > 0 for n in path),
+                  f"approx_objective {label}: frozen solver {timings['frozen']}, a kernel "
+                  f"did not run: {launches}")
+            check(bool(timings["warning"]) == (label == "scaled"),
+                  f"approx_objective {label}: precision warning {timings['warning']!r}")
+            print(f"approx_objective {label}: setup {timings['frozen_s']:.3f} s, new SDP "
+                  f"{timings['new_sdp_s'][0]:.3f} s (reading it included), wall {wall:.1f} s; "
+                  f"objective {r[0]['objective']}, d_objective {r[0]['d_objective']}, "
+                  f"dd_objective {r[0]['dd_objective']}; "
+                  f"launches {launches}; precision warning {timings['warning']!r}; "
+                  f"card {smi}")
+            out["approx"][label] = {"result": r[0], "timings": timings, "launches": launches}
+        r2, timings, launches = _approx_run(kernels, acli, "classic",
+                                            base + list(LADDER_PREC["classic"]))
+        first = out["approx"]["classic"]
+        check(timings["frozen"] == "npz" and r2 == [first["result"]],
+              f"approx_objective from solver_state.npz: {timings['frozen']}, {r2} against "
+              f"{first['result']}")
+        setup_launches = {k: v - launches[k] for k, v in first["launches"].items()}
+        print(f"approx_objective classic from solver_state.npz: identical JSON; load "
+              f"{timings['frozen_s']:.3f} s, new SDP {timings['new_sdp_s'][0]:.3f} s; launches "
+              f"per new SDP {launches}, in the setup {setup_launches}")
+        out["load"] = {"timings": timings, "launches": launches,
+                       "setup_launches": setup_launches}
+
+        frozen, kf = tao.load_solver_state(sol / "solver_state.npz", dev)
+        for name, A in [(f"S bucket {i}", S) for i, S in enumerate(frozen.Ss)] + \
+                [("Q", frozen.Q)]:
+            Af = mp.round_to(A, kf)
+            ms = _time_ms(torch, lambda: kernels.mp_cholesky(Af))
+            print(f"factor of {name} {tuple(A.shape)} at Kf = {kf}: {ms:.3f} ms")
+
+        outer = {}
+        points = tmp / "points1.json"
+        points.write_text('{"points": [["0.5", "1", "2"]]}')
+        t0 = time.time()
+        sdp2functions.main(["-i", str(CERTIFICATE_PMP), "-o", str(tmp / "cert_fn.json"),
+                            "--precision", "150"])
+        print(f"sdp2functions certificate: {time.time() - t0:.2f} s")
+        outer["certificate"] = _outer_run(torch, kernels, ocli, "certificate", [
+            "--functions", str(tmp / "cert_fn.json"), "--points", str(points),
+            "--out", str(tmp / "cert_out.json"), "--precision", "150",
+            "--dualityGapThreshold", OUTER_GAP["certificate"],
+            "--initialMatrixScalePrimal", "1e2", "--initialMatrixScaleDual", "1e2",
+            "--device", str(dev), *OUTER_FLAGS])
+        with mpmath.workprec(300):
+            dy = abs(mpmath.mpf(outer["certificate"]["out"]["optimal"]) + mpmath.mpf(Y_OPT))
+        print(f"outer_limits certificate: |optimal + y_opt| = {mpmath.nstr(dy, 3)}")
+        check(dy < mpmath.mpf("1e-9"), f"outer_limits certificate optimum off by {dy}")
+
+        doc = json.loads(LADDER_PMP.read_text())
+        doc["PositiveMatrixWithPrefactorArray"] = \
+            doc["PositiveMatrixWithPrefactorArray"][:OUTER_BLOCKS]
+        (tmp / "ladder_pmp.json").write_text(json.dumps(doc))
+        t0 = time.time()
+        sdp2functions.main(["-i", str(tmp / "ladder_pmp.json"), "-o",
+                            str(tmp / "ladder_fn.json"), "--precision", "216"])
+        print(f"sdp2functions {OUTER_BLOCKS} ladder blocks at 216 bits: "
+              f"{time.time() - t0:.2f} s")
+        (tmp / "points.json").write_text(json.dumps({"points": [["0.5", "1", "2"]]
+                                                     * OUTER_BLOCKS}))
+        outer["ladder"] = _outer_run(torch, kernels, ocli, "ladder", [
+            "--functions", str(tmp / "ladder_fn.json"), "--points", str(tmp / "points.json"),
+            "--out", str(tmp / "ladder_out.json"), "--precision", "150",
+            "--dualityGapThreshold", OUTER_GAP["ladder"],
+            "--initialMatrixScalePrimal", "1e4", "--initialMatrixScaleDual", "1e4",
+            "--device", str(dev), *OUTER_FLAGS])
+        ref = json.loads(LADDER_OUTER.read_text())
+        got = outer["ladder"]["out"]
+        with mpmath.workprec(300):
+            d_opt = abs(mpmath.mpf(got["optimal"]) - mpmath.mpf(ref["optimal"]))
+            d_w = max(abs(mpmath.mpf(a) - mpmath.mpf(b)) for a, b in zip(got["y"], ref["y"]))
+        print(f"outer_limits ladder ({OUTER_BLOCKS} blocks) against the JAX package's "
+              f"out.json: optimal differs by {mpmath.nstr(d_opt, 3)}, weights by at most "
+              f"{mpmath.nstr(d_w, 3)}; card {smi}")
+        check(len(got["y"]) == len(ref["y"]) == 16 and d_opt < mpmath.mpf("1e-9")
+              and d_w < mpmath.mpf("1e-6"),
+              f"outer_limits ladder: optimal off by {d_opt}, weights by {d_w}")
+
+        t0 = time.time()
+        res2 = cli.run(["-s", str(LADDER_PERTURBED), "-o", str(tmp / "perturbed_out"),
+                        "-c", str(tmp / "ck2"), "--timingRun", "never", "--device", str(dev),
+                        *LADDER_PREC["classic"], *LADDER_FLAGS, "--verbosity", "0"])
+        resolve_s = time.time() - t0
+        tail = [(f"{float(host_mpf(h.duality_gap)):.2e}", h.primal_step, h.dual_step)
+                for h in res2.history[-3:]]
+        check(str(res2.terminate_reason) == "found primal-dual optimal solution",
+              f"the perturbed ladder's solve ended with {res2.terminate_reason} after "
+              f"{res2.iterations} iterations; the last (gap, steps) {tail}")
+        with mpmath.workprec(800):
+            c = first["result"]
+
+            def linear(r):
+                return mpmath.mpf(r["objective"]) - mpmath.mpf(r["dd_objective"])
+
+            quad = abs(mpmath.mpf(c["objective"]) - res2.dual_objective)
+            lin = abs(linear(c) - res2.dual_objective)
+            rel = {}
+            for lb, tol in APPROX_REL.items():
+                r = out["approx"][lb]["result"]
+                got = {"objective": mpmath.mpf(r["objective"]),
+                       "d_objective": mpmath.mpf(r["d_objective"]), "linear": linear(r)}
+                want = {"objective": mpmath.mpf(c["objective"]),
+                        "d_objective": mpmath.mpf(c["d_objective"]), "linear": linear(c)}
+                rel[lb] = {k: float(abs(got[k] - want[k]) / abs(want[k])) for k in got}
+        print(f"perturbed ladder re-solved classic: {res2.iterations} iterations in {resolve_s:.1f} s, dual objective "
+              f"{mpmath.nstr(res2.dual_objective, 40)}; classic approx_objective off by "
+              f"{mpmath.nstr(quad, 4)} (bound {QUAD_BOUND:g}), its linear part by "
+              f"{mpmath.nstr(lin, 4)}; scaled and wide against classic (relative): {rel}")
+        check(quad < QUAD_BOUND, f"the quadratic approximation is off by {quad}")
+        check(lin > 100 * QUAD_BOUND, f"the linear error {lin} is not well above the bound")
+        for lb, errs in rel.items():
+            check(all(errs[k] <= APPROX_REL[lb][k] for k in APPROX_REL[lb]),
+                  f"approx_objective {lb} against classic: {errs}")
+        out.update(quad_err=float(quad), lin_err=float(lin), rel=rel, solve_s=solve_s,
+                   resolve_s=resolve_s)
+        out["outer"] = outer
+    return out
+
+
 def main():
-    if not (ROOT / "sdpb_tpu_torch").is_dir() or not LADDER.exists() \
-            or not CERTIFICATE.exists():
+    if not (ROOT / "sdpb_tpu_torch").is_dir() or not all(
+            f.exists() for f in (LADDER, CERTIFICATE, LADDER_PERTURBED, LADDER_PMP,
+                                 CERTIFICATE_PMP, LADDER_OUTER)):
         print("chip_smoke.py must run from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -1370,6 +1619,7 @@ def main():
     chunked = chunked_phase(torch, kernels, cli, dev)
     checkpoints = checkpoint_phase(torch, mp, kernels, cli, dev,
                                    chunked["wide"]["chunked"]["result"].state, smi)
+    tools = tools_phase(torch, mp, kernels, cli, dev, smi)
     check("jax" not in sys.modules, "the port imported jax")
     check(not any(m == "sdpb_tpu" or m.startswith("sdpb_tpu.") for m in sys.modules),
           "the port imported the JAX package")
@@ -1422,6 +1672,11 @@ def main():
                                          f"load {c['load_s']:.2f} s)"
                                          for lb, c in checkpoints.items() if lb != "timing")
           + f"; timing run {checkpoints['timing']['wall_s']:.1f} s"
+          + f"; approx_objective setup " + ", ".join(
+              f"{lb} {a['timings']['frozen_s']:.2f} s" for lb, a in tools["approx"].items())
+          + f", quadratic error {tools['quad_err']:.3e} (linear {tools['lin_err']:.3e}); "
+          f"outer_limits certificate {tools['outer']['certificate']['seconds']:.1f} s, "
+          f"ladder {OUTER_BLOCKS} blocks {tools['outer']['ladder']['seconds']:.1f} s"
           + f"; total {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": record}))

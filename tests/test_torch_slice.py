@@ -710,14 +710,26 @@ import sdpb_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(sdpb_tpu_torch.__path__, "sdpb_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-for name in ("parallel.planner", "parallel.timing", "solver.checkpoint"):
+for name in ("parallel.planner", "parallel.timing", "solver.checkpoint",
+             "cli.approx_objective", "cli.outer_limits", "cli.sdp2functions",
+             "tools.approx_objective", "tools.outer_limits", "tools.functions",
+             "tools.mesh", "tools.spectrum", "convert.pmp", "convert.poly"):
     assert "sdpb_tpu_torch." + name in names, name
 from sdpb_tpu_torch.cli import sdpb as cli
 for arith in ("classic", "scaled"):
     res = cli.run(["-s", sys.argv[1], "-o", sys.argv[2] + "/" + arith, "--device", "cpu",
                    "-c", sys.argv[2] + "/" + arith + ".ck", "--precision", "64",
-                   "--arithmetic", arith, "--maxIterations", "2", "--verbosity", "0"])
+                   "--arithmetic", arith, "--maxIterations", "2", "--verbosity", "0",
+                   "--writeSolution", "x,y,X,Y"])
     assert str(res.terminate_reason) == "maxIterations exceeded", res.terminate_reason
+# approx_objective from that state (the problem against itself: no change),
+# and sdp2functions on the certificate's PMP
+from sdpb_tpu_torch.cli import approx_objective, sdp2functions
+out = approx_objective.run(["--sdp", sys.argv[1], "--newSdp", sys.argv[1], "--precision",
+                            "64", "--solutionDir", sys.argv[2] + "/classic", "--device", "cpu"])
+assert float(out[0]["d_objective"]) == 0.0 == float(out[0]["dd_objective"]), out
+assert sdp2functions.main(["-i", sys.argv[3], "-o", sys.argv[2] + "/f.json",
+                           "--precision", "64"]) == 0
 # a resume from the checkpoint, and the timing run on a two-block problem
 from sdpb_tpu_torch.solver.checkpoint import load_checkpoint
 from sdpb_tpu_torch.parallel.timing import timing_run
@@ -772,17 +784,19 @@ def _jax_package_references(path: Path, root: Path = REPO) -> list:
 
 def test_port_never_imports_jax(tmp_path):
     """With jax and the JAX package blocked at import, every module of the
-    port (the wide ones, parallel/ and solver/checkpoint.py included)
-    imports, the CLI solves (2 iterations of the certificate, classic and
-    scaled, each with its final checkpoint), a checkpoint loads, the timing
+    port (the wide ones, parallel/, solver/checkpoint.py and the tools that
+    drive the solver included) imports, the CLI solves (2 iterations of the
+    certificate, classic and scaled, each with its final checkpoint),
+    approx_objective and sdp2functions run, a checkpoint loads, the timing
     run runs and the wide ops run; no source of the port, nor
     chip_smoke.py, names the JAX package as a module."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-    proc = subprocess.run([sys.executable, "-c", _GUARD, str(CERTIFICATE), str(tmp_path)],
+    proc = subprocess.run([sys.executable, "-c", _GUARD, str(CERTIFICATE), str(tmp_path),
+                           str(CERTIFICATE.with_name("pmp.json"))],
                           capture_output=True, text=True, env=env, cwd=str(REPO),
                           timeout=600)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 26
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 36
     sources = sorted((REPO / "sdpb_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) >= 20
     found = [f for p in sources for f in _jax_package_references(p)]

@@ -209,3 +209,61 @@ def max_rel_bits(got, want, prec):
                 return math.inf
             worst = max(worst, float(mpmath.log(abs(g - w) / abs(w), 2)))
     return worst
+
+
+# ---------------------------------------------------------------------------
+# Perturbed problems (approx_objective)
+
+
+def perturbed_sdp(host, delta: float, seed: int, fields: str = "bcB"):
+    """A copy of a host SDPData (either package's) with b, c and B (those
+    named in `fields`) each multiplied elementwise by 1 + delta * r, r
+    standard normal from numpy's default_rng(seed), limb by limb."""
+    import copy
+
+    rng = np.random.default_rng(seed)
+    new = copy.deepcopy(host)
+
+    def scaled(a):
+        return a * (1 + delta * rng.standard_normal(a.shape[1:]))
+
+    if "b" in fields:
+        new.b = scaled(host.b)
+    for old, blk in zip(host.blocks, new.blocks):
+        if "c" in fields:
+            blk.c = scaled(old.c)
+        if "B" in fields:
+            blk.B = scaled(old.B)
+    return new
+
+
+def perturbed_pmp(doc: dict, delta: float, seed: int, digits: int = 80) -> dict:
+    """A copy of a JSON PMP document with its objective and every
+    polynomial coefficient (of each matrix's lower triangle, mirrored to
+    the upper) multiplied by 1 + delta * r, r standard normal
+    from numpy's default_rng(seed), at `digits` decimal digits.  Through
+    sdp2input this perturbs b, c and B along the polynomial structure,
+    which keeps a strictly feasible problem feasible; a random
+    perturbation of c at the sample points need not (the ladder's
+    interpolating polynomials are ill-conditioned in them)."""
+    import copy
+
+    import mpmath
+
+    rng = np.random.default_rng(seed)
+    new = copy.deepcopy(doc)
+
+    def scaled(s):
+        with mpmath.workprec(int(digits * 3.33) + 64):
+            return mpmath.nstr(mpmath.mpf(s) * (1 + mpmath.mpf(delta * rng.standard_normal())),
+                               digits, strip_zeros=False, min_fixed=1, max_fixed=0)
+
+    new["objective"] = [scaled(s) for s in doc["objective"]]
+    for entry in new["PositiveMatrixWithPrefactorArray"]:
+        m = entry["polynomials"]
+        for r in range(len(m)):
+            for c in range(r + 1):      # the matrix stays symmetric
+                m[r][c] = [[scaled(x) for x in poly] for poly in m[r][c]]
+                if c < r:
+                    m[c][r] = copy.deepcopy(m[r][c])
+    return new
