@@ -5,8 +5,11 @@
 
 Run from the root of a checkout.  Phases, each fatal on failure:
   1. device: nvidia-smi name and power limit, torch / CUDA / nvcc versions;
-  2. build: the CUDA kernels, from sdpb_tpu_torch/csrc, all limb counts,
-     classic and scaled, the wide GEMM for every word size, the peak probe;
+  2. build: the CUDA kernels, from sdpb_tpu_torch/csrc: classic K = 2-9
+     and 13 (10-12 run in no phase: `--classic-limbs` below), scaled 2-9,
+     the two-word GEMM for
+     every word size, the three-word GEMM and elementwise kernels (Kg = 3,
+     7, 8, 9), the peak probe;
   3. exactness: TwoSum and TwoProd exact on the card, in plain torch and
      inside the kernels (through 1 x 1 and 1 x 2 mp_matmuls), float64 and
      float32;
@@ -58,9 +61,13 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      positive, the probe and the representation's kernels launched, and
      the fastest profiled scaled and wide iteration within 25% of the
      fastest steady iteration of that representation's ladder solve, run
-     right before and right after the profile;
- 14. the chunked loop against the host loop on the ladder, classic K=5 and
-     scaled K32=9 (LADDER_ITERATIONS) and wide 2x9 (WIDE_ITERATIONS): every
+     right before and right after the profile (the wide one's solve before
+     is phase 11's, with one steady iteration, and phase 11's classic run
+     and phase 12 lie between it and the profile: a weaker gate);
+ 14. the chunked loop on the ladder, classic K=5 and scaled K32=9
+     (LADDER_ITERATIONS, the CLI's chunks of 8) and wide 2x9
+     (WIDE_ITERATIONS, one chunk), against the host loop's runs of the same
+     commands in phases 6, 9 and 11: every
      statistic of every iteration, the reason, the count and the final
      state identical; s/iteration both ways (the chunked one per replay,
      the capture not counted), the graphs' capture and instantiate
@@ -95,7 +102,19 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      on the dim-2 certificate to the bisected optimum and on the first
      OUTER_BLOCKS ladder blocks (N = 15, degree 18) against the JAX
      package's committed out.json, with every solve's host, solve and
-     capture seconds.
+     capture seconds;
+ 17. three words (--precision 640: 3 words x 9 float32 limbs) and classic
+     K = 13: the three-word kernels (the GEMM at the ladder's two GEMM
+     shapes, the elementwise sum and product at S's and the X blocks'
+     shapes, Kg = 9 and 7) and the classic K = 13 GEMM, factor and solves
+     (phase 4's shapes) against their plain versions, bit for bit, with
+     mpmath spot checks, times and bounds; the certificate to optimality at
+     640 bits in three words in the CLI's chunked loop (y* matches); the
+     ladder at 640 bits in three words and classic K = 13, WIDE3_ITERATIONS
+     + 1 iterations each in the host loop: identical steps, the digits the
+     objectives share printed and held to WIDE3_DIGITS; the three-word
+     ladder in the chunked loop in chunks of WIDE3_CHUNK against that host
+     loop run, identical, with the graphs' sizes and a replay's device ms.
 Every CLI call writes its checkpoints into a temporary directory (-c), and
 the ladder phases but 15 pass --timingRun never.  The ladder's zip is
 parsed once per limb count (read_sdp cached), not at every call.
@@ -103,7 +122,21 @@ The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is the kernels' JSON record, and the line before that the card's name
 and power limit.  Without CUDA, or outside a checkout, the script exits
 non-zero and prints no result.
+
+Two diagnostics run instead of the phases when asked for:
+
+    python3 chip_smoke.py --classic-limbs 10 11 12
+    python3 chip_smoke.py --digits
+
+--classic-limbs K...: the classic kernels built at each K and held to their
+plain versions at phase 4's shapes, as phase 17 holds K = 13 (times,
+bounds).  --digits: the ladder at --precision 640 in three words with 3
+and 4 refinement passes (--factorLimbs 9, the default, and 8: the scaled
+factor carries ~188 bits at both) and in classic K = 13 with and without
+refinement (--factorLimbs 7, the default, and 13), and the digits each
+pair of runs' objectives share.
 """
+import argparse
 import contextlib
 import functools
 import io
@@ -121,8 +154,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 LADDER = ROOT / "fixtures" / "ising_ladder_120" / "sdp.zip"
 CERTIFICATE = ROOT / "fixtures" / "dim2_certificate" / "sdp.zip"
-LADDER_ITERATIONS = 10
-WIDE_ITERATIONS = 2
+# the ladder's --maxIterations in phases 6, 9 and 14 (two chunks of the
+# chunked loop) and, two words, in phases 11 and 14; phase 17's three words
+# and classic K = 13 (two chunks of WIDE3_CHUNK)
+LADDER_ITERATIONS = 8
+WIDE_ITERATIONS = 1
+WIDE3_ITERATIONS = 2
 # phase 15: the checkpointed solve's --maxIterations (two chunks of 8) and
 # the resumed solves'
 CHECKPOINT_ITERATIONS, RESUME_ITERATIONS = 15, 7
@@ -176,11 +213,33 @@ KERNELS = {
 }
 WIDE_KERNEL = ("mp_matmul_wide", "sdpb_tpu_torch/csrc/mp_wide_matmul.cu",
                "sdpb_tpu/ops/pallas_kernels.py:161")
+# the three-word kernels: none replaces a Pallas kernel; each stands for
+# the JAX package's XLA composite of the same operation
+WIDE3_KERNELS = {
+    "mp_matmul_wide3": ("sdpb_tpu_torch/csrc/mp_wide3_matmul.cu", "sdpb_tpu/ops/linalg.py:32"),
+    "mp_wide3_add": ("sdpb_tpu_torch/csrc/mp_wide3_ops.cu", "sdpb_tpu/ops/mpwide.py:262"),
+    "mp_wide3_mul": ("sdpb_tpu_torch/csrc/mp_wide3_ops.cu", "sdpb_tpu/ops/mpwide.py:280"),
+}
+# the shapes the three-word path gives its elementwise kernels on the
+# ladder: S and the X blocks
+WIDE3_EW_SHAPES = ((120, 57, 57), (120, 20, 20))
 PROBE_KERNEL = ("peak_probe", "sdpb_tpu_torch/csrc/peak_probe.cu",
                 "sdpb_tpu/tools/profile_phases.py:97")
+# phase 17: --precision 640, three words of 9 float32 limbs (27) against
+# classic float64 K = 13; the word sizes of its GEMM checks; the chunk of
+# its chunked run (two chunks over WIDE3_ITERATIONS + 1 iterations)
+WIDE3_PREC = ("--precision", "640", "--arithmetic", "scaled")
+CLASSIC13_PREC = ("--precision", "640")
+WIDE3_CHECK_KG = (9, 7)
+WIDE3_CHUNK = 2
+# the digits phase 17's three-word and classic K = 13 ladder objectives
+# must share: more than two 216-bit words hold (~130)
+WIDE3_DIGITS = 135
 PROBE_TILE, PROBE_CHECK_STEPS, PROBE_STEPS = (512, 512), 2048, 65536
-# phase 13's profiler runs: (label, --scaledLimbs, --reps)
-PROFILES = (("classic", 0, 2), ("scaled", 9, 4), ("wide", 17, 3))
+# phase 13's profiler runs: (label, --scaledLimbs, --reps); the gate reads
+# each profile's fastest call, so a profile of one call meets a slow
+# stretch of the shared host with nothing to spare it
+PROFILES = (("wide", 17, 3), ("classic", 0, 2), ("scaled", 9, 3))
 # H100 SXM at 700 W (NVIDIA data sheet): non-fused add/mul per second on
 # the CUDA cores (34 and 67 TFLOP/s count a fused multiply-add as two) and
 # device memory bytes per second
@@ -213,8 +272,11 @@ def check(cond, msg):
         raise PhaseError(msg)
 
 
+T_START = time.time()
+
+
 def phase(name):
-    print(f"\n=== {name} ===", flush=True)
+    print(f"\n=== {name} === ({time.time() - T_START:.1f} s into the script)", flush=True)
 
 
 def device_phase(torch):
@@ -235,16 +297,21 @@ def device_phase(torch):
 def build_phase(kernels):
     phase("2. build")
     t0 = time.time()
-    built = kernels.build()
-    for scaled in kernels.REPRESENTATIONS:
-        for K in kernels.K_RANGE:
-            kernels._library(K, scaled)
-    for K in kernels.WIDE_KG:
-        kernels._library(K, kernels.WIDE)
+    # every limb count but classic K = 10-12, which no phase runs (their
+    # objects compile longest after K = 13's; tests/test_torch_cuda.py
+    # builds them)
+    Ks = [K for K in kernels.K_RANGE if K not in (10, 11, 12)]
+    built = kernels.build(Ks)
+    for rep in (*kernels.REPRESENTATIONS, kernels.WIDE, kernels.WIDE3):
+        for K in kernels.k_range(rep):
+            if rep is not False or K in Ks:
+                kernels._library(K, rep)
     kernels._probe_library()
-    print(f"build: {time.time() - t0:.1f} s for K={list(kernels.K_RANGE)}, classic "
-          f"and scaled, the wide GEMM for Kg={list(kernels.WIDE_KG)} and the peak "
-          f"probe (compiled now: {len(built)} libraries)")
+    print(f"build: {time.time() - t0:.1f} s for K={Ks} classic, "
+          f"K={list(kernels.SCALED_K_RANGE)} scaled, the two-word GEMM for "
+          f"Kg={list(kernels.WIDE_KG)}, the three-word GEMM for "
+          f"Kg={list(kernels.WIDE3_KG)} and the peak probe (compiled now: "
+          f"{len(built)} libraries)")
     return time.time() - t0
 
 
@@ -408,14 +475,14 @@ def _sweep_ops(m, K, chain):
         ((m - 1 - K) if chain and m - 1 > K else 0)
 
 
-def wide_op_counts(K):
-    """Float operations of one wide fused multiply-add (mpw::fma_acc) and of
-    one word TwoSum (mpw::add_full) at Kg = K, counted from mp_wide.cuh:
-    TwoSum 6, quick TwoSum 3, an exact product and its error 2 (a product
-    and a fused multiply-add, the least work; the kernel runs Dekker's
-    split and 9-operation error), a staged power-of-two scaling 3
-    multiplies (2 for the limb lifts); the integer exponent work and the
-    exponent-field lifts are not counted."""
+def word_op_counts(K):
+    """Float operations of the word ops of mp_wide.cuh at Kg = K: (add_st,
+    mul_st, add_full, mul_full), and of mp_wide3.cuh's mul_full3, counted
+    from the source: TwoSum 6, quick TwoSum 3, an exact product and its
+    error 2 (a product and a fused multiply-add, the least work; the kernel
+    runs Dekker's split and 9-operation error), a staged power-of-two
+    scaling 3 multiplies (2 for the limb lifts); the integer exponent work
+    and the exponent-field lifts are not counted."""
     finish = lambda m: _sweep_ops(m, K, True) + 3 * (2 * K - 1) + 3 * K
     extract = 12 * (K - 1) + 3 * K
     products = 2 * K * K
@@ -425,14 +492,53 @@ def wide_op_counts(K):
     add_full = 12 * K + _sweep_ops(2 * K, K, False) + extract + finish(4 * K + 2)
     mul_full = 4 * K + products + 6 * nf + _sweep_ops(nf, K, False) + extract + \
         finish(2 * nf + 2)
+    mul_full3 = 4 * K + products + 9 * nf + _sweep_ops(nf, K, False) + extract + \
+        _sweep_ops(2 * nf + 2, K, False) + extract + finish(3 * nf + 4)
+    return add_st, mul_st, add_full, mul_full, mul_full3
+
+
+def wide_op_counts(K):
+    """Float operations of one wide fused multiply-add (mpw::fma_acc) and of
+    one word TwoSum (mpw::add_full) at Kg = K (word_op_counts)."""
+    add_st, mul_st, add_full, mul_full, _ = word_op_counts(K)
     return mul_full + 2 * mul_st + 4 * add_st + add_full, add_full
 
 
-def kernel_bound(name, shape, K, scaled):
+def wide3_op_counts(K):
+    """Float operations of a three-word product and sum at Kg = K
+    (mp_wide3.cuh: the top word product exact in three words, 2 exact in
+    two and 3 truncated word products, 32 word TwoSums, 7 word adds; 20 word
+    TwoSums, 3 word adds), and of one word TwoSum, which the kernels skip
+    for words more than 24 K digits apart."""
+    add_st, mul_st, add_full, mul_full, mul_full3 = word_op_counts(K)
+    return (mul_full3 + 2 * mul_full + 3 * mul_st + 32 * add_full + 7 * add_st,
+            20 * add_full + 3 * add_st, add_full)
+
+
+def kernel_bound(name, shape, K, scaled, skipped=0):
     """(bound_ms, bound_by): the larger of the float operations over the
     card's rate and the bytes (inputs read once, outputs written once) over
-    its memory rate, for one call at `shape` (the wide GEMM: K = Kg, two
-    float32 words per element)."""
+    its memory rate, for one call at `shape` (the wide GEMMs: K = Kg, two
+    or three float32 words per element; the three-word kernels' word
+    TwoSums less `skipped`, those of the work the result needs that this
+    run's data left as they were, kernels.mp_*wide3*_plain's tally)."""
+    if name in ("mp_wide3_add", "mp_wide3_mul"):
+        wmul, wadd, add_full = wide3_op_counts(K)
+        n = math.prod(shape)
+        ops = n * (wadd if name == "mp_wide3_add" else wmul) - skipped * add_full
+        t_ops = ops / OPS_PER_S[True]
+        t_bytes = 3 * n * 3 * (4 * K + 4) / BYTES_PER_S
+        return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    if name == "mp_matmul_wide3":
+        # the Kd products and Kd - 1 sums the product needs: the kernel's
+        # products and sums of the zero padding, and its first add into
+        # the zero accumulator, are not counted
+        wmul, wadd, add_full = wide3_op_counts(K)
+        B, M, Kd, N = shape
+        ops = B * M * N * (Kd * wmul + (Kd - 1) * wadd) - skipped * add_full
+        t_ops = ops / OPS_PER_S[True]
+        t_bytes = B * (M * Kd + Kd * N + M * N) * 3 * (4 * K + 4) / BYTES_PER_S
+        return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
     if name == "mp_matmul_wide":
         fma, add_full = wide_op_counts(K)
         B, M, Kd, N = shape
@@ -466,10 +572,12 @@ def _err(k, p):
     return float((k.limbs.double() - p.limbs.double()).abs().max())
 
 
-def kernel_phase(torch, mp, kernels, dev, scaled):
+def kernel_phase(torch, mp, kernels, dev, scaled, K=None):
     """Each kernel of one representation against its plain version at the
     ladder solve's shapes: bit-identical limbs (and exponents), a spot
-    check against mpmath, kernel and plain times, the bound."""
+    check against mpmath, kernel and plain times, the bound.  K: classic
+    limbs of every kernel, the factor's too (phase 17: K = 13), in place
+    of phase 4's K = 5 and Kf = 4."""
     import mpmath
     import numpy as np
     rng = np.random.default_rng(7 if scaled else 4)
@@ -478,6 +586,9 @@ def kernel_phase(torch, mp, kernels, dev, scaled):
         # initial_factor_limbs gives at Omega=1e4, gap 1e-20, 24-bit limbs
         Kg, Kf, decades, mant = 9, 8, 3.0, 24
         phase("7. scaled kernels against plain versions (ladder shapes)")
+    elif K:
+        Kg, Kf, decades, mant = K, K, 0.0, 53
+        print(f"classic kernels at K={K} against plain versions (phase 4's shapes)")
     else:
         Kg, Kf, decades, mant = 5, 4, 0.0, 53
         phase("4. classic kernels against plain versions (ladder shapes)")
@@ -590,13 +701,14 @@ def _print_rows(rows):
               f"{pms:10.1f} {bound:10.4f} {bound / ms:8.1%} {by}")
 
 
-def _wide_operand(rng, shape, Kg, decades):
-    """A random two-word MPW on the CPU: float64 limb stacks with fresh bits
-    in every limb (past the 48 Kg bits the two words hold), staged exactly."""
+def _wide_operand(rng, shape, Kg, decades, G=2):
+    """A random MPW of G words on the CPU: float64 limb stacks with fresh
+    bits in every limb (past the 24 G Kg bits the words hold), staged
+    exactly."""
     from sdpb_tpu_torch.ops import mpwide
-    K64 = -(-(48 * Kg) // 53) + 2
+    K64 = -(-(24 * G * Kg) // 53) + 2
     return mpwide.wide_parts_to_mp(
-        mpwide.f64_limbs_to_wide_parts(_limbs(rng, shape, K64, decades=decades), 2 * Kg),
+        mpwide.f64_limbs_to_wide_parts(_limbs(rng, shape, K64, decades=decades), G * Kg),
         "cpu")
 
 
@@ -692,17 +804,21 @@ def _y_value(res):
     return _mpf(np.asarray(host_f64_limbs(res.state.y))[:, 0])
 
 
-def certificate_phase(torch, kernels, cli, dev, scaled):
-    label = ("8. dim-2 certificate solve, scaled (150 bits, 7 float32 limbs)"
-             if scaled else "5. dim-2 certificate solve (150 bits)")
-    phase(label)
+def certificate_phase(torch, kernels, cli, dev, scaled, prec="150", path=None):
+    """The certificate to optimality through the CLI (its default, chunked
+    loop) at `prec` bits, classic or scaled: optimal, y* within 1e-10 of
+    the bisected optimum, the kernels of `path` (default: the
+    representation's three) launched."""
+    if prec == "150":
+        phase("8. dim-2 certificate solve, scaled (150 bits, 7 float32 limbs)"
+              if scaled else "5. dim-2 certificate solve (150 bits)")
     import mpmath
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "out"
         kernels.reset_launches()
         t0 = time.time()
         res = cli.run(["-s", str(CERTIFICATE), "-o", str(out), "-c", str(Path(tmp) / "ck"),
-                       "--device", str(dev), "--precision", "150", *SOLVE_FLAGS,
+                       "--device", str(dev), "--precision", prec, *SOLVE_FLAGS,
                        "--arithmetic", "scaled" if scaled else "classic"])
         dt = time.time() - t0
         launches = dict(kernels.LAUNCHES)
@@ -717,9 +833,10 @@ def certificate_phase(torch, kernels, cli, dev, scaled):
     check(str(res.terminate_reason) == "found primal-dual optimal solution",
           f"certificate solve ended with {res.terminate_reason}")
     check(dy < mpmath.mpf("1e-10"), f"y* off by {dy}")
-    path = [kernels.counter(n, scaled) for n in kernels.KERNEL_NAMES]
+    path = path or [kernels.counter(n, scaled) for n in kernels.KERNEL_NAMES]
     check(all(launches[n] > 0 for n in path), f"a kernel did not run: {launches}")
-    return {"iterations": res.iterations, "seconds": dt, "dy": float(dy)}
+    return {"iterations": res.iterations, "seconds": dt, "dy": float(dy),
+            "graphs": res.graphs}
 
 
 @contextlib.contextmanager
@@ -890,6 +1007,9 @@ def kernel_path(kernels, label):
     scaled kernels)."""
     if label == "wide":
         return ["mp_matmul_wide", "mp_cholesky_scaled", "mp_solve_triangular_scaled"]
+    if label == "wide3":
+        return ["mp_matmul_wide3", "mp_wide3_add", "mp_wide3_mul", "mp_cholesky_scaled",
+                "mp_solve_triangular_scaled"]
     return [kernels.counter(n, label == "scaled") for n in kernels.KERNEL_NAMES]
 
 
@@ -1006,7 +1126,7 @@ def probe_phase(torch, kernels, dev, smi):
     return rows
 
 
-def profile_phase(torch, kernels, cli, dev):
+def profile_phase(torch, kernels, cli, dev, before):
     """Phase 13: the per-phase profiler on the ladder in the three
     representations; each record printed on one line.  The fastest of the
     scaled and of the wide profiled iteration's calls is held to the
@@ -1014,16 +1134,23 @@ def profile_phase(torch, kernels, cli, dev):
     ladder solve, run right before and right after the profile
     (BRACKET_ITERATIONS each).  The iteration is host-bound, and the host
     is shared: a slow stretch of seconds to minutes moves an iteration by
-    up to 1.5x, so solves timed minutes earlier (phase 9's or 11's) are no
+    up to 1.5x, so solves timed minutes earlier (phase 9's) are no
     yardstick, and since a load only ever adds time, each side's fastest
-    iteration is its least disturbed reading."""
+    iteration is its least disturbed reading.  The wide gate is weaker:
+    the wide profile runs first, and its solve before is phase 11's,
+    `before["wide"]` (the same command, WIDE_ITERATIONS + 1 iterations, so
+    one steady one), with phase 11's classic run and phase 12 (~70 s)
+    between it and the profile; a second wide solve there would cost the
+    script's time limit ~30 s."""
     phase("13. per-phase profiler on the ladder: classic K=4, scaled K32=9, "
           "wide K32=17 (--quant 8, Omega 1e4)")
     from sdpb_tpu_torch.tools import profile_phases
     records, solves, probe_launches = {}, {}, 0
     with tempfile.TemporaryDirectory() as tmp:
         def bracket(label):
-            if label != "classic":
+            if label in before and label not in solves:
+                solves[label] = [before[label]]
+            elif label != "classic":
                 solves.setdefault(label, []).append(_ladder_run(
                     torch, kernels, cli, dev, list(LADDER_PREC[label]),
                     BRACKET_ITERATIONS[label], kernel_path(kernels, label)))
@@ -1094,57 +1221,68 @@ def _stat_bits(v):
     return v.tobytes() if isinstance(v, np.ndarray) else v
 
 
-def chunked_phase(torch, kernels, cli, dev):
-    """Phase 14: the ladder in the chunked loop (the CLI's default) and in
-    the host loop, back to back, in the three representations."""
+def chunked_phase(torch, kernels, cli, dev, hosts):
+    """Phase 14: the ladder in the chunked loop (the CLI's default) in the
+    three representations, each against the host-loop run of the same
+    command in phases 6, 9 and 11 (`hosts`: label -> its _ladder_run)."""
     phase(f"14. the chunked loop (CUDA-graph replays) against the host loop on the "
           f"ladder: classic K=5 and scaled K32=9 ({LADDER_ITERATIONS} iterations), wide "
           f"2x9 ({WIDE_ITERATIONS})")
-    from sdpb_tpu_torch.solver.step import state_tensors
     out = {}
     for label, its in (("classic", LADDER_ITERATIONS), ("scaled", LADDER_ITERATIONS),
                        ("wide", WIDE_ITERATIONS)):
         path = kernel_path(kernels, label)
-        host = _ladder_run(torch, kernels, cli, dev, list(LADDER_PREC[label]), its, path)
+        # the CLI's chunks of 8; two words in one chunk of their iterations
+        # (a chunk of 8 would replay 6 more after the stop, ~3 s each)
         chunked = _ladder_run(torch, kernels, cli, dev, list(LADDER_PREC[label]), its, path,
-                              chunk_iterations=0)
-        a, b = host["result"], chunked["result"]
-        check(str(a.terminate_reason) == str(b.terminate_reason) and
-              a.iterations == b.iterations and len(a.history) == len(b.history),
-              f"{label}: the chunked loop ended otherwise: {b.terminate_reason} after "
-              f"{b.iterations} against {a.terminate_reason} after {a.iterations}")
-        diffs = [(i + 1, f) for i, (x, y) in enumerate(zip(a.history, b.history))
-                 for f in x._fields if _stat_bits(getattr(x, f)) != _stat_bits(getattr(y, f))]
-        check(not diffs, f"{label}: statistics differ from the host loop's: {diffs[:8]}")
-        check(all(torch.equal(p, q) for p, q in zip(state_tensors(a.state),
-                                                    state_tensors(b.state))),
-              f"{label}: the final state differs from the host loop's")
-        (kf, info), = b.graphs.items()
-        replays = sum(n for _, n, _ in b.chunks)
-        per = info["launches_per_replay"]
-        # the eager warm-up ahead of the capture, then every replay
-        check(all(chunked["launches"][k] == (replays + 1) * per.get(k, 0)
-                  for k in chunked["launches"]) and all(per.get(k, 0) > 0 for k in path),
-              f"{label}: launches {chunked['launches']} are not {replays} + 1 times the "
-              f"capture's {per}")
-        ratio = host["s_per_it"] / chunked["s_per_it"]
-        parts = [statistics.median(p) for p in zip(*b.replay_ms)]
-        print(f"{label}: {len(b.history)} iterations identical, {b.terminate_reason}; "
-              f"s/iteration host loop {host['s_per_it']:.4f}, chunked {chunked['s_per_it']:.4f} "
-              f"({ratio:.2f}x); graphs (factor {kf} limbs) A+B nodes {info['nodes']} "
-              f"(kernels {info['kernel_nodes']}), warm-up {info['warmup_s']:.2f} s, capture "
-              f"{info['capture_s']:.2f} s, instantiate {info['instantiate_s']:.2f} s, pool "
-              f"{info['pool_bytes'] / 2**30:.2f} GiB; peak device memory host loop "
-              f"{host['peak_bytes'] / 2**30:.2f} GiB, chunked {chunked['peak_bytes'] / 2**30:.2f} "
-              f"GiB; wall host loop {host['wall']:.1f} s, chunked {chunked['wall']:.1f} s; "
-              f"{replays} replays, launches per replay {per}")
-        print(f"{label}: a replay's device ms (median of {len(b.replay_ms)}): graph A "
-              f"{parts[0]:.2f} ({1e3 * parts[0] / info['nodes'][0]:.2f} us a node), the "
-              f"eigvalsh calls and the host's sync {parts[1]:.2f}, graph B {parts[2]:.2f} "
-              f"({1e3 * parts[2] / info['nodes'][1]:.2f} us a node)")
-        out[label] = {"host": host, "chunked": chunked, "graphs": info, "ratio": ratio,
-                      "replay_ms": parts}
+                              chunk_iterations=its + 1 if label == "wide" else 0)
+        out[label] = _loops_agree(torch, label, hosts[label], chunked, path)
     return out
+
+
+def _loops_agree(torch, label, host, chunked, path):
+    """The ladder run of the chunked loop against that of the host loop:
+    every statistic, the reason, the count and the final state identical;
+    the path's launches those of the eager warm-up and the replays, each
+    replay what the capture recorded.  Prints s/iteration both ways, the
+    graphs' sizes and seconds, and a replay's device ms."""
+    from sdpb_tpu_torch.solver.step import state_tensors
+    a, b = host["result"], chunked["result"]
+    check(str(a.terminate_reason) == str(b.terminate_reason) and
+          a.iterations == b.iterations and len(a.history) == len(b.history),
+          f"{label}: the chunked loop ended otherwise: {b.terminate_reason} after "
+          f"{b.iterations} against {a.terminate_reason} after {a.iterations}")
+    diffs = [(i + 1, f) for i, (x, y) in enumerate(zip(a.history, b.history))
+             for f in x._fields if _stat_bits(getattr(x, f)) != _stat_bits(getattr(y, f))]
+    check(not diffs, f"{label}: statistics differ from the host loop's: {diffs[:8]}")
+    check(all(torch.equal(p, q) for p, q in zip(state_tensors(a.state),
+                                                state_tensors(b.state))),
+          f"{label}: the final state differs from the host loop's")
+    (kf, info), = b.graphs.items()
+    replays = sum(n for _, n, _ in b.chunks)
+    per = info["launches_per_replay"]
+    # the eager warm-up ahead of the capture, then every replay
+    check(all(chunked["launches"][k] == (replays + 1) * per.get(k, 0)
+              for k in chunked["launches"]) and all(per.get(k, 0) > 0 for k in path),
+          f"{label}: launches {chunked['launches']} are not {replays} + 1 times the "
+          f"capture's {per}")
+    ratio = host["s_per_it"] / chunked["s_per_it"]
+    parts = [statistics.median(p) for p in zip(*b.replay_ms)]
+    print(f"{label}: {len(b.history)} iterations identical, {b.terminate_reason}; "
+          f"s/iteration host loop {host['s_per_it']:.4f}, chunked {chunked['s_per_it']:.4f} "
+          f"({ratio:.2f}x); graphs (factor {kf} limbs) A+B nodes {info['nodes']} "
+          f"(kernels {info['kernel_nodes']}), warm-up {info['warmup_s']:.2f} s, capture "
+          f"{info['capture_s']:.2f} s, instantiate {info['instantiate_s']:.2f} s, pool "
+          f"{info['pool_bytes'] / 2**30:.2f} GiB; peak device memory host loop "
+          f"{host['peak_bytes'] / 2**30:.2f} GiB, chunked {chunked['peak_bytes'] / 2**30:.2f} "
+          f"GiB; wall host loop {host['wall']:.1f} s, chunked {chunked['wall']:.1f} s; "
+          f"{replays} replays, launches per replay {per}")
+    print(f"{label}: a replay's device ms (median of {len(b.replay_ms)}): graph A "
+          f"{parts[0]:.2f} ({1e3 * parts[0] / info['nodes'][0]:.2f} us a node), the "
+          f"eigvalsh calls and the host's sync {parts[1]:.2f}, graph B {parts[2]:.2f} "
+          f"({1e3 * parts[2] / info['nodes'][1]:.2f} us a node)")
+    return {"host": host, "chunked": chunked, "graphs": info, "ratio": ratio,
+            "replay_ms": parts}
 
 
 def _state_values(state):
@@ -1582,7 +1720,175 @@ def tools_phase(torch, mp, kernels, cli, dev, smi):
     return out
 
 
-def main():
+def wide3_kernel_rows(torch, kernels, dev):
+    """The three-word kernels against their plain versions, Kg = 9 and 7:
+    the GEMM at the ladder's two GEMM shapes, the elementwise sum and
+    product at S's and the X blocks' shapes.  Bit-identical words, mpmath
+    spot checks (the GEMM within 2^-(72 Kg - 26) of the sum of the terms'
+    magnitudes, sum and product within 2^-(72 Kg - 22) of the operands'
+    magnitudes and of the product), kernel ms (median of 5), plain ms
+    (once), the bound (word TwoSums less those of the needed work that the
+    plain run's tally found more than 24 Kg digits apart, which the
+    kernels skip alike)."""
+    import mpmath
+    import numpy as np
+    from sdpb_tpu_torch.ops import mpfloat as mp, mpwide, mpwide_kernel as wk
+    rng = np.random.default_rng(17)
+    rows = []
+
+    def held(name, label, shape, Kg, a, b, kern, plain, spot, slack):
+        on = lambda x: mpwide.MPW(mp.MP(w.limbs.to(dev), w.exp.to(dev)) for w in x.words)
+        A, Bm = on(a), on(b)
+        ok = kern(A, Bm)
+        tally = wk.SkipTally()
+        op, pms = _timed_once(torch, lambda: plain(A, Bm, tally))
+        err = max(_err(k, p) for k, p in zip(ok.words, op.words))
+        check(err == 0.0, f"{name} {label}: kernel differs from plain (max {err})")
+        parts = [[(w.limbs.cpu().numpy(), w.exp.cpu().numpy()) for w in x.words]
+                 for x in (a, b, ok)]
+
+        def val(i, idx):
+            return mpmath.fsum(_mpf(l[(slice(None),) + idx], e[idx]) for l, e in parts[i])
+
+        with mpmath.workprec(72 * Kg + 120):
+            worst = max(spot(val, i) for i in range(20))
+            check(worst < mpmath.mpf(2) ** -(72 * Kg - slack),
+                  f"{name} {label}: spot check vs mpmath {worst}")
+        ms = _time_ms(torch, lambda: kern(A, Bm))
+        bound, by = kernel_bound(name, shape, Kg, True, tally.count)
+        rows.append((name, label, err, float(worst), ms, pms, bound, by))
+        print(f"{name} {label}: {tally.count} word TwoSums of the needed work left as "
+              f"they were (words more than {24 * Kg} digits apart)")
+
+    for Kg in WIDE3_CHECK_KG:
+        for (B, M, Kd, N) in GEMM_SHAPES:
+            a = _wide_operand(rng, (B, M, Kd), Kg, 2.0, G=3)
+            b = _wide_operand(rng, (B, Kd, N), Kg, 2.0, G=3)
+
+            def spot(val, i, B=B, M=M, Kd=Kd, N=N):
+                r = np.random.default_rng(500 + i)
+                bi, mi, ni = r.integers(B), r.integers(M), r.integers(N)
+                terms = [val(0, (bi, mi, t)) * val(1, (bi, t, ni)) for t in range(Kd)]
+                return abs(val(2, (bi, mi, ni)) - mpmath.fsum(terms)) / \
+                    mpmath.fsum(abs(t) for t in terms)
+
+            held("mp_matmul_wide3", f"[{B},{M},{Kd}]@[{B},{Kd},{N}] Kg={Kg}", (B, M, Kd, N),
+                 Kg, a, b, kernels.mp_matmul_wide,
+                 lambda A, Bm, t: kernels.mp_matmul_wide3_plain(
+                     *kernels._canon_wide_pair(A, Bm)[:2], t), spot, 26)
+        for shape in WIDE3_EW_SHAPES:
+            a = _wide_operand(rng, shape, Kg, 2.0, G=3)
+            b = _wide_operand(rng, shape, Kg, 2.0, G=3)
+            for name, add in (("mp_wide3_add", True), ("mp_wide3_mul", False)):
+                def spot(val, i, shape=shape, add=add):
+                    r = np.random.default_rng(600 + i)
+                    idx = tuple(int(r.integers(d)) for d in shape)
+                    x, y = val(0, idx), val(1, idx)
+                    return abs(val(2, idx) - (x + y if add else x * y)) / \
+                        (abs(x) + abs(y) if add else abs(x * y))
+
+                held(name, f"[{','.join(map(str, shape))}] Kg={Kg}", shape, Kg, a, b,
+                     getattr(kernels, name), getattr(kernels, name + "_plain"), spot, 22)
+    return rows
+
+
+def wide3_phase(torch, mp, kernels, cli, dev):
+    """Phase 17: three words (--precision 640, 3 x 9 float32 limbs) and
+    classic K = 13.  (a) the three-word GEMM and (b) the classic K = 13
+    GEMM, factor and solves against their plain versions; (c) the
+    certificate to optimality at 640 bits in three words in the CLI's
+    chunked loop; (d) the ladder at 640 bits, three words and classic
+    K = 13, WIDE3_ITERATIONS + 1 iterations each in the host loop:
+    identical steps, at least WIDE3_DIGITS shared digits; (e) the
+    three-word ladder in the chunked loop in chunks of
+    WIDE3_CHUNK against (d)'s host loop run, identical."""
+    phase(f"17. three words (--precision 640, 3 x 9 float32 limbs) and classic K=13: "
+          f"kernels, the certificate, the ladder ({WIDE3_ITERATIONS + 1} iterations), the "
+          f"chunked loop in chunks of {WIDE3_CHUNK}")
+    t0 = time.time()
+    rows = wide3_kernel_rows(torch, kernels, dev)
+    _print_rows(rows)
+    crows = kernel_phase(torch, mp, kernels, dev, scaled=False, K=13)
+    print(f"17a-b kernels: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    cert = certificate_phase(torch, kernels, cli, dev, scaled=True, prec="640",
+                             path=kernel_path(kernels, "wide3"))
+    print(f"17c certificate: {time.time() - t0:.1f} s, graphs {cert['graphs']}")
+    t0 = time.time()
+    wide3 = _ladder_run(torch, kernels, cli, dev, list(WIDE3_PREC), WIDE3_ITERATIONS,
+                        kernel_path(kernels, "wide3"))
+    classic = _ladder_run(torch, kernels, cli, dev, list(CLASSIC13_PREC), WIDE3_ITERATIONS,
+                          kernel_path(kernels, "classic"))
+    digits, same_steps = _shared_digits(wide3, classic)
+    print(f"three-word objectives agree with classic K=13 to {digits:.1f} significant "
+          f"digits over {wide3['iterations']} iterations, step lengths identical in "
+          f"{same_steps}; s/iteration three words {wide3['s_per_it']:.3f} vs classic "
+          f"{classic['s_per_it']:.3f}; peak {wide3['peak_bytes'] / 2**30:.2f} vs "
+          f"{classic['peak_bytes'] / 2**30:.2f} GiB; three-word GEMM launches "
+          f"{wide3['launches']['mp_matmul_wide3']} in {wide3['iterations']} iterations")
+    check(same_steps == wide3["iterations"] == classic["iterations"],
+          f"step lengths differ from the classic run's ({same_steps} of "
+          f"{wide3['iterations']} identical)")
+    check(digits >= WIDE3_DIGITS,
+          f"three-word objectives share only {digits:.1f} digits with classic")
+    print(f"17d ladder: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    chunked = _ladder_run(torch, kernels, cli, dev, list(WIDE3_PREC), WIDE3_ITERATIONS,
+                          kernel_path(kernels, "wide3"), chunk_iterations=WIDE3_CHUNK)
+    loops = _loops_agree(torch, "wide3", wide3, chunked, kernel_path(kernels, "wide3"))
+    print(f"17e chunked loop: {time.time() - t0:.1f} s")
+    return {"rows": rows, "classic_rows": crows, "certificate": cert, "ladder": wide3,
+            "classic": classic, "digits": digits, "loops": loops}
+
+
+def classic_limbs_diagnostic(torch, mp, kernels, dev, Ks):
+    """--classic-limbs: the classic kernels at each K in Ks against their
+    plain versions at phase 4's shapes (kernel_phase)."""
+    phase(f"classic kernels at K={Ks} against plain versions (phase 4's shapes)")
+    t0 = time.time()
+    kernels.build(Ks, representations=(False,), wide_Ks=(), probe=False, wide3_Ks=())
+    print(f"build: {time.time() - t0:.1f} s")
+    for K in Ks:
+        kernel_phase(torch, mp, kernels, dev, scaled=False, K=K)
+
+
+def digits_diagnostic(torch, kernels, cli, dev):
+    """--digits: the ladder at --precision 640, WIDE3_ITERATIONS + 1
+    iterations each in the host loop, in three words with 3 and 4
+    refinement passes and in classic K = 13 with 2 and none, and the digits
+    each three-word run shares with each classic run and classic with
+    itself."""
+    phase("digits: the ladder at --precision 640, three words and classic K=13, by "
+          "refinement passes")
+    t0 = time.time()
+    kernels.build([7, 8, 9, 13], wide_Ks=(), probe=False, wide3_Ks=(9,))
+    print(f"build: {time.time() - t0:.1f} s")
+    runs = {}
+    for label, prec, path in (
+            ("classic K=13, Kf=7 (2 passes)", CLASSIC13_PREC, "classic"),
+            ("classic K=13, Kf=13 (none)", CLASSIC13_PREC + ("--factorLimbs", "13"), "classic"),
+            ("three words, Kf=9 (3 passes)", WIDE3_PREC, "wide3"),
+            ("three words, Kf=8 (4 passes)", WIDE3_PREC + ("--factorLimbs", "8"), "wide3")):
+        print(f"{label}:")
+        runs[label] = _ladder_run(torch, kernels, cli, dev, list(prec), WIDE3_ITERATIONS,
+                                  kernel_path(kernels, path))
+    labels = list(runs)
+    for i, mine in enumerate(labels):
+        for ref in labels[:min(i, 2)]:
+            digits, same = _shared_digits(runs[mine], runs[ref])
+            print(f"{mine} against {ref}: {digits:.1f} digits shared over "
+                  f"{runs[mine]['iterations']} iterations, step lengths identical in {same}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Smoke test of the PyTorch port on one "
+                                             "CUDA card (no arguments: every phase).")
+    ap.add_argument("--classic-limbs", type=int, nargs="+", metavar="K",
+                    help="only hold the classic kernels at these limb counts to their "
+                         "plain versions")
+    ap.add_argument("--digits", action="store_true",
+                    help="only the three-word ladder's digits by refinement passes")
+    args = ap.parse_args(argv)
     if not (ROOT / "sdpb_tpu_torch").is_dir() or not all(
             f.exists() for f in (LADDER, CERTIFICATE, LADDER_PERTURBED, LADDER_PMP,
                                  CERTIFICATE_PMP, LADDER_OUTER)):
@@ -1604,6 +1910,14 @@ def main():
 
     t_start = time.time()
     smi = device_phase(torch)
+    if args.classic_limbs or args.digits:
+        if args.classic_limbs:
+            classic_limbs_diagnostic(torch, mp, kernels, dev, args.classic_limbs)
+        if args.digits:
+            digits_diagnostic(torch, kernels, cli, dev)
+        print(f"\ndiagnostics: {time.time() - t_start:.1f} s")
+        print(smi)
+        return 0
     build_s = build_phase(kernels)
     exactness_phase(torch, mp, kernels, dev)
     rows = kernel_phase(torch, mp, kernels, dev, scaled=False)
@@ -1615,11 +1929,13 @@ def main():
     wrows = wide_kernel_phase(torch, kernels, dev)
     wladder = wide_ladder_phase(torch, kernels, cli, dev)
     prows = probe_phase(torch, kernels, dev, smi)
-    profiles, probe_launches = profile_phase(torch, kernels, cli, dev)
-    chunked = chunked_phase(torch, kernels, cli, dev)
+    profiles, probe_launches = profile_phase(torch, kernels, cli, dev, {"wide": wladder})
+    chunked = chunked_phase(torch, kernels, cli, dev,
+                            {"classic": ladder, "scaled": sladder, "wide": wladder})
     checkpoints = checkpoint_phase(torch, mp, kernels, cli, dev,
                                    chunked["wide"]["chunked"]["result"].state, smi)
     tools = tools_phase(torch, mp, kernels, cli, dev, smi)
+    wide3 = wide3_phase(torch, mp, kernels, cli, dev)
     check("jax" not in sys.modules, "the port imported jax")
     check(not any(m == "sdpb_tpu" or m.startswith("sdpb_tpu.") for m in sys.modules),
           "the port imported the JAX package")
@@ -1645,6 +1961,17 @@ def main():
                    "max_abs_err": max(r[2] for r in wrows if r[0] == name), "ms": first[4],
                    "plain_ms": first[5], "bound_ms": first[6], "bound_by": first[7],
                    "library_ms": None})
+    # the three-word kernels at Kg = 9, their launches those of phase 17's
+    # chunked ladder run (the main path at --precision 640)
+    for name, (source, replaces) in WIDE3_KERNELS.items():
+        mine = [r for r in wide3["rows"] if r[0] == name]
+        first = [r for r in mine if r[1].endswith("Kg=9")][0]
+        record.append({"name": name, "route": "cuda", "source": source,
+                       "replaces": replaces,
+                       "launches": wide3["loops"]["chunked"]["launches"][name],
+                       "max_abs_err": max(r[2] for r in mine), "ms": first[4],
+                       "plain_ms": first[5], "bound_ms": first[6], "bound_by": first[7],
+                       "library_ms": None})
     name, source, replaces = PROBE_KERNEL
     _, _, _, _, ms, pms, bound, by = prows[0]
     record.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1677,6 +2004,11 @@ def main():
           + f", quadratic error {tools['quad_err']:.3e} (linear {tools['lin_err']:.3e}); "
           f"outer_limits certificate {tools['outer']['certificate']['seconds']:.1f} s, "
           f"ladder {OUTER_BLOCKS} blocks {tools['outer']['ladder']['seconds']:.1f} s"
+          + f"; at 640 bits the certificate optimal in "
+          f"{wide3['certificate']['iterations']} iterations ({wide3['certificate']['seconds']:.1f}"
+          f" s), the ladder {wide3['ladder']['s_per_it']:.3f} s/iteration three words "
+          f"(3x9) vs {wide3['classic']['s_per_it']:.3f} classic (K=13), {wide3['digits']:.1f} "
+          f"digits shared, chunked {wide3['loops']['chunked']['s_per_it']:.3f} s/replay"
           + f"; total {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": record}))

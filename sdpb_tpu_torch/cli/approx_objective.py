@@ -11,8 +11,9 @@ rebuilds the frozen Schur solver).  Prints a JSON array of {path,
 objective, d_objective, dd_objective}, as the JAX CLI does.  --newSdp is a
 zip, a directory, or an .nsv list of them.  The representation and the
 device come from the flags of the port's sdpb CLI: classic float64 limbs
-by default, --arithmetic scaled for float32 limbs with an exponent (one
-word up to --precision 208, two words up to 424), on the card unless
+by default (on the card up to --precision 681), --arithmetic scaled for
+float32 limbs with an exponent (one word up to --precision 208, two words
+up to 424, three up to 640), on the card unless
 --device cpu (or --platform cpu) asks for the CPU.  The JAX CLI picks the
 representation by platform and runs on the CPU unless told otherwise.
 """
@@ -26,7 +27,7 @@ from pathlib import Path
 import mpmath
 import numpy as np
 
-from .sdpb import MAX_WIDE_LIMBS, limbs_for_precision, resolve_device
+from .sdpb import check_precision, limbs_for_precision, resolve_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -78,14 +79,8 @@ def run(argv=None, timings: dict = None) -> list:
     import torch
 
     args = build_parser().parse_args(argv)
-    scaled_limbs = 0
-    if args.arithmetic == "scaled":
-        scaled_limbs = limbs_for_precision(args.precision, 24)
-        if scaled_limbs > MAX_WIDE_LIMBS:
-            raise SystemExit(
-                f"--precision {args.precision} needs {scaled_limbs} scaled float32 "
-                f"limbs; the port holds at most {MAX_WIDE_LIMBS} (two words). "
-                f"Use --arithmetic classic.")
+    scaled_limbs = check_precision(args.arithmetic, args.precision, args.device,
+                                   args.platform)
     device = resolve_device(args.device, args.platform)
 
     from ..io.sdp_zip import read_sdp

@@ -10,11 +10,14 @@ on a multi-block problem that has no block_timings.json yet, resume from
 so running a command again resumes it), solve with a checkpoint every
 --checkpointInterval seconds, then the final checkpoint and the solution.
 `--arithmetic` picks the representation, which the JAX CLI picks by
-platform: classic float64 limbs (the default; any precision) or scaled
-float32 limbs with an int32 exponent per element: up to 9 limbs (216
-bits) one scaled word, 10-18 limbs (--precision 209-424, covering the
-reference's default 400) the wide representation of two words of Kg
-limbs.  More than 18 scaled limbs (three words) are refused.  The device
+platform: classic float64 limbs (the default; on a CUDA card up to 13
+limbs, --precision 681, more on the CPU) or scaled float32 limbs with an
+int32 exponent per element: up to 9 limbs (216 bits) one scaled word,
+10-18 limbs (--precision 209-424, covering the reference's default 400)
+the wide representation of two words of Kg limbs, 19-27 (--precision
+425-640) three words.  More than 27 scaled limbs are refused, as the JAX
+CLI refuses them, and so is classic above 13 limbs on a card, both before
+the SDP is read.  The device
 defaults to `cuda` and is never chosen silently: without CUDA the run
 stops unless `--device cpu` or `--platform cpu` is given.  Running several
 processes is refused.
@@ -31,8 +34,10 @@ import torch
 from .common import add_solver_options, parse_with_param_file, solver_params_from_args
 
 _REFUSED = ("coordinator", "numProcesses", "processId")
-# two scaled words of at most 9 limbs: the wide GEMM kernel takes G = 2
-MAX_WIDE_LIMBS = 18
+# three scaled words of at most 9 limbs (sdpb_tpu/cli/sdpb.py:113-117)
+MAX_WIDE_LIMBS = 27
+# classic float64 limbs the CUDA kernels take (csrc/mp.cuh; ROADMAP A23)
+MAX_CARD_CLASSIC_LIMBS = 13
 
 
 def limbs_for_precision(precision_bits: int, mant_bits: int = 53) -> int:
@@ -82,14 +87,40 @@ def build_parser() -> argparse.ArgumentParser:
                         "keep the fastest and persist the record; 'never' "
                         "skips it (quantized buckets of 8 points).")
     p.add_argument("--arithmetic", choices=("classic", "scaled"), default="classic",
-                   help="MP representation: classic float64 limbs (any "
-                        "precision) or scaled float32 limbs with an int32 "
-                        "exponent per element (one word up to 216 bits, two "
-                        "words up to 424).")
+                   help="MP representation: classic float64 limbs (on a "
+                        "card up to --precision 681, 13 limbs; any on the "
+                        "CPU) or scaled float32 limbs with an int32 exponent "
+                        "per element (one word up to --precision 208, two "
+                        "words up to 424, three up to 640).")
     for name in _REFUSED:
         p.add_argument(f"--{name}", default=None, help=argparse.SUPPRESS)
     add_solver_options(p)
     return p
+
+
+def check_precision(arithmetic: str, precision: int, device=None,
+                    platform: str = "auto") -> int:
+    """The scaled limbs of --arithmetic and --precision (0: classic), or a
+    stop naming the limit: more than MAX_WIDE_LIMBS scaled limbs anywhere,
+    more than MAX_CARD_CLASSIC_LIMBS classic ones on the CUDA device that
+    --device and --platform ask for (no card is needed to refuse)."""
+    if arithmetic == "scaled":
+        scaled_limbs = limbs_for_precision(precision, 24)
+        if scaled_limbs > MAX_WIDE_LIMBS:
+            raise SystemExit(
+                f"--precision {precision} needs {scaled_limbs} scaled float32 limbs; "
+                f"the wide representation holds at most {MAX_WIDE_LIMBS} (three words "
+                f"of 9, --precision 640).  Use --arithmetic classic.")
+        return scaled_limbs
+    K = limbs_for_precision(precision)
+    on_card = platform != "cpu" and torch.device(device or "cuda").type == "cuda"
+    if on_card and K > MAX_CARD_CLASSIC_LIMBS:
+        raise SystemExit(
+            f"--precision {precision} needs {K} classic float64 limbs; the CUDA "
+            f"kernels take at most {MAX_CARD_CLASSIC_LIMBS} (--precision 681): "
+            f"classic limbs past 13 on a card are ROADMAP A23.  Use --arithmetic "
+            f"scaled (up to --precision 640) or --device cpu.")
+    return 0
 
 
 def resolve_device(name, platform: str = "auto") -> torch.device:
@@ -118,15 +149,8 @@ def run(argv=None, chunk_iterations: int = 0):
             raise SystemExit(f"--{name} is not supported by the PyTorch port "
                              f"yet (one process, one device)")
     params = solver_params_from_args(args)
-    scaled_limbs = 0
-    if args.arithmetic == "scaled":
-        scaled_limbs = limbs_for_precision(params.precision, 24)
-        if scaled_limbs > MAX_WIDE_LIMBS:
-            raise SystemExit(
-                f"--precision {params.precision} needs {scaled_limbs} scaled "
-                f"float32 limbs; the port's wide representation holds at most "
-                f"{MAX_WIDE_LIMBS} (two words, --precision 424), three words "
-                f"are not ported (ROADMAP B7).  Use --arithmetic classic.")
+    scaled_limbs = check_precision(args.arithmetic, params.precision, args.device,
+                                   args.platform)
     device = resolve_device(args.device, args.platform)
 
     from ..io.sdp_zip import read_sdp

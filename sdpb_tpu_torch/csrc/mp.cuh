@@ -22,11 +22,19 @@
 #include <cuda_runtime.h>
 
 #ifndef MP_K
-#error "build with -DMP_K=<limbs>, 2 <= MP_K <= 9"
+#error "build with -DMP_K=<limbs>, 2 <= MP_K <= 13 (scaled: 9)"
 #endif
-static_assert(MP_K >= 2 && MP_K <= 9, "MP_K must lie in 2..9");
 #ifndef MP_SCALED
 #define MP_SCALED 0
+#endif
+// Classic limbs to K = 13 (681 bits, above the scaled path's 648): a
+// limb lies 53 (K - 1) binary digits below the first, and past K ~ 17 the
+// last goes subnormal even for values near 1.  Scaled words stop at 9
+// limbs: their float32 ladder must stay inside float32's normal range.
+#if MP_SCALED
+static_assert(MP_K >= 2 && MP_K <= 9, "scaled MP_K must lie in 2..9");
+#else
+static_assert(MP_K >= 2 && MP_K <= 13, "classic MP_K must lie in 2..13");
 #endif
 
 namespace mpk {

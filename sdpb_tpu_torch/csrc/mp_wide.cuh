@@ -111,7 +111,9 @@ __host__ __device__ constexpr Plan<K> make_plan() {
   return p;
 }
 
-__constant__ Plan<MP_K> kPlan = make_plan<MP_K>();
+// static: one copy in each object of a library (mp_wide3_matmul.cu and
+// mp_wide3_ops.cu both include this header)
+static __constant__ Plan<MP_K> kPlan = make_plan<MP_K>();
 
 __device__ __forceinline__ int exp_bits(float x) { return (__float_as_int(x) >> 23) & 0xFF; }
 

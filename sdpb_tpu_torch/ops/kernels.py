@@ -8,6 +8,9 @@ sends every matmul, Cholesky and triangular solve to them):
   * `mp_cholesky`          csrc/mp_cholesky.cu  <- pallas_kernels.py::_cholesky_kernel
   * `mp_solve_triangular`  csrc/mp_trsm.cu      <- pallas_kernels.py::_trsm_kernel
   * `mp_matmul_wide`       csrc/mp_wide_matmul.cu <- pallas_kernels.py::_matmul_wide_kernel
+                           (two words); csrc/mp_wide3_matmul.cu for three words,
+                           which the JAX package computes as an XLA composite
+                           (sdpb_tpu/ops/linalg.py:32-74, no Pallas kernel)
 
 and one measures the card: `peak_probe` (csrc/peak_probe.cu <- the inner
 kernel of tools/profile_phases.py::vpu_peak_gflops), the CUDA-core rate of
@@ -17,9 +20,10 @@ unfused float32 or float64 adds and multiplies that the per-phase profiler
 The first three are built for both MP representations: the classic build
 (float64 limbs, csrc/mp.cuh) replaces the `scaled=False` branch of each
 Pallas kernel, the scaled build (float32 limbs and an int32 exponent per
-element, csrc/mp_scaled.cuh) its `scaled=True` branch.  The wide GEMM
-takes two-word MPW operands (ops/mpwide.py, G = 2 words of Kg limbs;
-csrc/mp_wide.cuh); the factorizations never see a wide value.
+element, csrc/mp_scaled.cuh) its `scaled=True` branch; classic limbs go to
+K = 13, scaled ones to 9.  The wide GEMM takes MPW operands (ops/mpwide.py)
+of G = 2 or 3 words of Kg limbs, each word count its own kernel over
+csrc/mp_wide.cuh; the factorizations never see a wide value.
 
 Dispatch is by the device of the operands and nothing else: CUDA tensors
 launch the kernel of their representation (a shape, limb count or dtype
@@ -32,7 +36,10 @@ stay the launches the device ran.
 The plain versions perform the kernels' exact operation order with the
 port's MP ops (`mpfloat.kmul`, the mplist term order; for the wide GEMM
 the compact ops of ops/mpwide_kernel.py), so on one device a kernel and
-its plain version agree limb for limb.
+its plain version agree limb for limb.  The three-word GEMM's plain
+version follows the JAX composite's order (products, a halving tree over
+each chunk of the contraction, the chunks added in order) with the
+compact word ops.
 
 Build: the CUDA sources are compiled with nvcc at first use, one shared
 library per limb count K and representation (-DMP_K=K, -DMP_SCALED=0|1),
@@ -40,8 +47,8 @@ into `build/sdpb_tpu_torch/` of the checkout, named by a hash of the
 sources and flags; they are bound with ctypes (plain C entry points
 returning `cudaGetLastError()`, exponent pointers NULL for classic).  The
 wide GEMM has one library per word size Kg (-DMP_WIDE=1 -DMP_SCALED=1
--DMP_K=Kg), built in the same parallel pass, and so has the peak probe (one
-library, no limb count).
+-DMP_K=Kg), built in the same parallel pass, and so have the three-word
+GEMM (WIDE3) and the peak probe (one library, no limb count).
 """
 from __future__ import annotations
 
@@ -54,6 +61,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -67,6 +75,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sdpb_tpu_torch"
 SOURCES = ("mp_matmul.cu", "mp_cholesky.cu", "mp_trsm.cu")
 WIDE_SOURCES = ("mp_wide_matmul.cu",)
+WIDE3_SOURCES = ("mp_wide3_matmul.cu", "mp_wide3_ops.cu")
 PROBE_SOURCES = ("peak_probe.cu",)
 # no contraction (a fused TwoProd or TwoSum loses its error term), and
 # IEEE subnormals, division and square root, as the plain versions have
@@ -74,16 +83,22 @@ PROBE_SOURCES = ("peak_probe.cu",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-ftz=false", "-prec-div=true", "-prec-sqrt=true",
               "-Xcompiler", "-fPIC")
-K_RANGE = range(2, 10)
+K_RANGE = range(2, 14)              # classic limb counts (scaled: SCALED_K_RANGE)
+SCALED_K_RANGE = range(2, 10)
 REPRESENTATIONS = (False, True)     # classic, scaled
 WIDE = "wide"                       # the representation key of the wide libraries
 WIDE_KG = range(3, 10)              # word sizes of the wide GEMM (Kg = 3 for tests)
+WIDE3 = "wide3"                     # the key of the three-word GEMM's libraries
+WIDE3_KG = (3, 7, 8, 9)             # its word sizes: 19-27 limbs, and Kg = 3 for tests
 PROBE = "probe"                     # the key of the peak probe's library (no limb count)
 CHUNK = 8   # contraction chunk of the matmul (pallas_kernels.py:101)
 
 KERNEL_NAMES = ("mp_matmul", "mp_cholesky", "mp_solve_triangular")
 LAUNCHES = {name + suffix: 0 for suffix in ("", "_scaled") for name in KERNEL_NAMES}
 LAUNCHES["mp_matmul_wide"] = 0
+LAUNCHES["mp_matmul_wide3"] = 0
+LAUNCHES["mp_wide3_add"] = 0
+LAUNCHES["mp_wide3_mul"] = 0
 LAUNCHES["peak_probe"] = 0
 _LIBS = {}
 
@@ -133,39 +148,48 @@ def _source_hash() -> str:
 
 
 def _tag(rep) -> str:
-    return {WIDE: "w", PROBE: "p"}.get(rep) or ("s" if rep else "c")
+    return {WIDE: "w", WIDE3: "t", PROBE: "p"}.get(rep) or ("s" if rep else "c")
+
+
+def k_range(rep) -> tuple:
+    """The limb counts (word sizes) a representation's libraries take."""
+    return tuple({WIDE: WIDE_KG, WIDE3: WIDE3_KG}.get(rep)
+                 or (SCALED_K_RANGE if rep else K_RANGE))
 
 
 def library_path(K: int, scaled=False) -> Path:
     """The library of limb count K in a representation: False (classic),
-    True (scaled) or WIDE (K = Kg, the wide GEMM); PROBE (K ignored) is the
-    peak probe's."""
+    True (scaled), WIDE or WIDE3 (K = Kg, the two- and three-word GEMMs);
+    PROBE (K ignored) is the peak probe's."""
     if scaled == PROBE:
         return BUILD_DIR / f"libpeak_{_source_hash()}.so"
     return BUILD_DIR / f"libmpk_{_source_hash()}_k{K}{_tag(scaled)}.so"
 
 
 def _sources(rep) -> tuple:
-    return {WIDE: WIDE_SOURCES, PROBE: PROBE_SOURCES}.get(rep, SOURCES)
+    return {WIDE: WIDE_SOURCES, WIDE3: WIDE3_SOURCES, PROBE: PROBE_SOURCES}.get(rep, SOURCES)
 
 
 def _defines(K: int, rep) -> list:
     if rep == PROBE:
         return []
-    if rep == WIDE:
+    if rep in (WIDE, WIDE3):
         return [f"-DMP_K={K}", "-DMP_SCALED=1", "-DMP_WIDE=1"]
     return [f"-DMP_K={K}", f"-DMP_SCALED={int(rep)}"]
 
 
 def build(Ks=K_RANGE, representations=REPRESENTATIONS, wide_Ks=WIDE_KG,
-          probe: bool = True) -> list:
+          probe: bool = True, wide3_Ks=WIDE3_KG) -> list:
     """Compile the libraries that are missing: (K, classic/scaled) for K in
-    Ks, (Kg, WIDE) for Kg in wide_Ks, (0, PROBE) with `probe`; the (source,
-    K, representation) objects in parallel, one nvcc each, as many at a
-    time as there are cores.  Returns the (K, representation) pairs built."""
+    Ks that the representation takes, (Kg, WIDE) for Kg in wide_Ks, (Kg,
+    WIDE3) for Kg in wide3_Ks, (0, PROBE) with `probe`; the (source, K,
+    representation) objects in parallel, one nvcc each, as many at a time
+    as there are cores, the largest limb counts first (they compile
+    longest).  Returns the (K, representation) pairs built."""
     todo = [(K, s) for s in representations for K in Ks
-            if not library_path(K, s).exists()]
+            if K in k_range(s) and not library_path(K, s).exists()]
     todo += [(K, WIDE) for K in wide_Ks if not library_path(K, WIDE).exists()]
+    todo += [(K, WIDE3) for K in wide3_Ks if not library_path(K, WIDE3).exists()]
     if probe and not library_path(0, PROBE).exists():
         todo.append((0, PROBE))
     if not todo:
@@ -178,41 +202,53 @@ def build(Ks=K_RANGE, representations=REPRESENTATIONS, wide_Ks=WIDE_KG,
             return str(Path(tmp) / f"{src}.k{K}{_tag(s)}.o")
 
         compiles = [[nvcc, *NVCC_FLAGS, *_defines(K, s), "-c", str(CSRC / src),
-                     "-o", obj(K, s, src)] for K, s in todo for src in _sources(s)]
+                     "-o", obj(K, s, src)]
+                    for K, s in sorted(todo, key=lambda t: -t[0]) for src in _sources(s)]
         with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
-            list(pool.map(_run, compiles))
+            seconds = list(pool.map(_run, compiles))
         for K, s in todo:
             so = Path(tmp) / f"k{K}{_tag(s)}.so"
             _run([nvcc, "-shared", "-o", str(so), *(obj(K, s, src) for src in _sources(s))])
             os.replace(so, library_path(K, s))
+    slowest = sorted(zip(seconds, compiles), key=lambda t: -t[0])[:3]
     print(f"built CUDA kernels for (K, representation) {todo} in "
-          f"{time.time() - t0:.1f} s ({BUILD_DIR})", flush=True)
+          f"{time.time() - t0:.1f} s ({BUILD_DIR}); slowest objects: "
+          + ", ".join(f"{Path(c[-1]).name} {t:.1f} s" for t, c in slowest), flush=True)
     return todo
 
 
-def _run(cmd) -> None:
+def _run(cmd) -> float:
+    """Run a build command; its seconds."""
+    t0 = time.time()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
                            f"{proc.stdout}{proc.stderr}")
+    return time.time() - t0
 
 
 def _library(K: int, scaled) -> ctypes.CDLL:
-    wide = scaled == WIDE
-    if K not in (WIDE_KG if wide else K_RANGE):
-        raise ValueError(f"the CUDA kernels take 2 <= K <= 9 limbs (the wide GEMM "
-                         f"3 <= Kg <= 9), got K={K}")
+    if K not in k_range(scaled):
+        raise ValueError(f"the CUDA kernels take 2 <= K <= 13 classic limbs, 2 <= K <= 9 "
+                         f"scaled ones, word sizes {list(WIDE_KG)} (two words) and "
+                         f"{list(WIDE3_KG)} (three words); got K={K} ({scaled!r}); "
+                         f"classic K >= 14 on a card: ROADMAP A23")
     lib = _LIBS.get((K, scaled))
     if lib is None:
-        if wide:
-            build([], [], [K], probe=False)
+        if scaled in (WIDE, WIDE3):
+            build([], [], [K] if scaled == WIDE else [], probe=False,
+                  wide3_Ks=[K] if scaled == WIDE3 else [])
         else:
-            build([K], [scaled], [], probe=False)
+            build([K], [scaled], [], probe=False, wide3_Ks=[])
         lib = ctypes.CDLL(str(library_path(K, scaled)))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        if wide:
+        if scaled == WIDE:
             lib.mp_wide_matmul_launch.argtypes = [vp] * 16 + [ci] * 5 + [vp]
             lib.mp_wide_matmul_launch.restype = ci
+        elif scaled == WIDE3:
+            lib.mp_wide3_matmul_launch.argtypes = [vp] * 20 + [ci] * 6 + [vp]
+            lib.mp_wide3_ew_launch.argtypes = [vp] * 18 + [ctypes.c_longlong, ci, vp]
+            lib.mp_wide3_matmul_launch.restype = lib.mp_wide3_ew_launch.restype = ci
         else:
             lib.mp_matmul_launch.argtypes = [vp] * 6 + [ci] * 4 + [vp]
             lib.mp_cholesky_launch.argtypes = [vp] * 6 + [ci] * 2 + [vp]
@@ -411,18 +447,21 @@ def mp_matmul_wide_plain(a: MPW, b: MPW) -> MPW:
 
 
 def mp_matmul_wide(a: MPW, b: MPW) -> MPW:
-    """Batched two-word MP matmul a [..., M, Kd] @ b [..., Kd, N] (broadcast
-    batch); CUDA operands launch the wide GEMM kernel of their word size,
-    CPU operands run the plain version."""
+    """Batched wide MP matmul a [..., M, Kd] @ b [..., Kd, N] (broadcast
+    batch) of two- or three-word operands; CUDA operands launch the GEMM
+    kernel of their word count and size, CPU operands run its plain
+    version."""
     if not (isinstance(a, MPW) and isinstance(b, MPW)):
         raise TypeError(f"mp_matmul_wide takes two MPW, got {type(a).__name__} "
                         f"and {type(b).__name__}")
-    if a.G != 2 or b.G != 2:
-        raise ValueError(f"the wide GEMM takes two-word operands (G = 2), got G={a.G} "
-                         f"and G={b.G}")
+    if a.G != b.G or a.G not in (2, 3):
+        raise ValueError(f"the wide GEMM takes operands of G = 2 or G = 3 words alike, "
+                         f"got G={a.G} and G={b.G}")
     if a.Kg != b.Kg:
         raise ValueError(f"word sizes differ: {a.Kg} vs {b.Kg}")
     a4, b4, unflatten = _canon_wide_pair(a, b)
+    if a.G == 3:
+        return unflatten(_matmul_wide3(a4, b4))
     if _on_cpu(*a4.words, *b4.words):
         return unflatten(mp_matmul_wide_plain(a4, b4))
     Kg, B, M, Kd = a4.words[0].limbs.shape
@@ -438,6 +477,180 @@ def mp_matmul_wide(a: MPW, b: MPW) -> MPW:
         _launch("mp_wide_matmul_launch", Kg, WIDE, a4.device, ptrs, (B, M, Kd, N, tc))
         LAUNCHES["mp_matmul_wide"] += 1
     return unflatten(MPW(out))
+
+
+# ---------------------------------------------------------------------------
+# Three-word MP GEMM
+
+
+# Terms (b, m, t, n) of the three-word GEMM held at once, by the kernel
+# and its plain version alike: the kernel's scratch (3 (4 Kg + 4) bytes a
+# term: 126 MB at Kg = 9) and the plain version's row stacks (up to ~2 KB
+# a term and stack at Kg = 9) stay bounded whatever Kd is; a pass holds at
+# least one chunk of every output.  The passes change no bit.
+WIDE3_TERMS = 1 << 20
+
+
+def wide3_chunk(K: int) -> int:
+    """The contraction chunk of the JAX package's composite wide GEMM
+    (sdpb_tpu/ops/linalg.py:43-47) at K limbs in all: 128 below K = 6,
+    else max(4, 3200 // K^2) (4 at K = 27, 7 at K = 21)."""
+    return 128 if K < 6 else max(4, (128 * 25) // (K * K))
+
+
+def wide3_plan(B: int, M: int, Kd: int, N: int, K: int, budget: int):
+    """(c, nch, tc): the chunk c (Kd itself where Kd <= wide3_chunk(K): the
+    composite then sums the products unpadded), the chunks nch, and the
+    values of t per pass tc, a multiple of c, at least c."""
+    chunk = wide3_chunk(K)
+    c = Kd if Kd <= chunk else chunk
+    nch = -(-Kd // c)
+    return c, nch, c * max(1, min(nch, budget // max(1, B * M * N * c)))
+
+
+def _sv_words(x: MPW, idx) -> tuple:
+    return tuple((w.limbs[(slice(None),) + idx], w.exp[idx]) for w in x.words)
+
+
+def mp_matmul_wide3_plain(a: MPW, b: MPW, tally: Optional[wk.SkipTally] = None) -> MPW:
+    """Plain version of the three-word GEMM on [Kg,B,M,Kd] x [Kg,B,Kd,N]:
+    the JAX composite's order (sdpb_tpu/ops/linalg.py:32-74) with the
+    compact word ops of ops/mpwide_kernel.py.  Per pass of tc values of t,
+    the products of every term at once (wmul_g_c), then each chunk's
+    halving tree (wadd_g_c on the two halves, an odd last term carried) and
+    the chunk sum added into the accumulator, which starts at zero; a
+    single chunk is the result.  Kd = 0 gives zeros.  `tally` counts the
+    skipped word TwoSums of the work the product needs: the Kd products and
+    the sums of two partial sums that each hold a term, not the zero
+    padding's products and sums, nor the add into the zero accumulator."""
+    Kg = a.Kg
+    _, B, M, Kd = a.words[0].limbs.shape
+    N = b.words[0].limbs.shape[-1]
+    if Kd == 0:
+        return _wide_zeros((B, M, N), Kg, 3, a.device)
+    c, nch, tc = wide3_plan(B, M, Kd, N, a.K, WIDE3_TERMS)
+    if nch * c > Kd:
+        a = mp.pad_dim(a, 2, nch * c - Kd)
+        b = mp.pad_dim(b, 1, nch * c - Kd)
+
+    def skip(needed):
+        return None if tally is None else tally.skip(needed)
+
+    E, S = Ellipsis, slice(None)
+    acc = tuple(wk.wzeros((B, M, N), Kg, a.device)[0] for _ in range(3))
+    for t0 in range(0, nch * c, tc):
+        ts = slice(t0, t0 + tc)
+        # the terms of the pass that are not padding, per t: [tc, 1]
+        real = (torch.arange(t0, min(t0 + tc, nch * c), device=a.device) < Kd)[:, None]
+        terms = wk.wmul_g_c(_sv_words(a, (S, S, ts, None)), _sv_words(b, (S, None, ts, S)),
+                            Kg, skip(real))                          # [Kg,B,M,tc,N]
+        for q in range(0, terms[0][1].shape[-2], c):
+            sub = tuple((l[E, q:q + c, :], e[E, q:q + c, :]) for l, e in terms)
+            held = real[q:q + c]
+            n = c
+            while n > 1:
+                half = n // 2
+                lo, hi = held[:half], held[half:2 * half]
+                s = wk.wadd_g_c(tuple((l[E, :half, :], e[E, :half, :]) for l, e in sub),
+                                tuple((l[E, half:2 * half, :], e[E, half:2 * half, :])
+                                      for l, e in sub), Kg, skip(lo & hi))
+                if n % 2:
+                    s = tuple((torch.cat([sl, l[E, n - 1:n, :]], -2),
+                               torch.cat([se, e[E, n - 1:n, :]], -2))
+                              for (sl, se), (l, e) in zip(s, sub))
+                held = torch.cat([lo | hi, held[n - 1:n]] if n % 2 else [lo | hi])
+                sub, n = s, half + n % 2
+            chunk_sum = tuple((l[E, 0, :], e[E, 0, :]) for l, e in sub)
+            acc = chunk_sum if nch == 1 else wk.wadd_g_c(
+                acc, chunk_sum, Kg, skip(None) if t0 + q else None)
+    return MPW(MP(*w) for w in acc)
+
+
+def _wide_zeros(shape, Kg: int, G: int, device) -> MPW:
+    return MPW(MP(*wk.wzeros(shape, Kg, device)[0]) for _ in range(G))
+
+
+def _matmul_wide3(a4: MPW, b4: MPW) -> MPW:
+    """The three-word GEMM on canonical operands: the kernel for CUDA
+    operands, the plain version for CPU ones."""
+    if _on_cpu(*a4.words, *b4.words):
+        return mp_matmul_wide3_plain(a4, b4)
+    Kg, B, M, Kd = a4.words[0].limbs.shape
+    N = b4.words[0].limbs.shape[-1]
+    if Kd == 0:
+        _library(Kg, WIDE3)          # the word size is refused as the kernel would
+        return _wide_zeros((B, M, N), Kg, 3, a4.device)
+    out = [_empty((B, M, N), Kg, True, a4.device) for _ in range(3)]
+    if out[0].limbs.numel():
+        c, _, tc = wide3_plan(B, M, Kd, N, a4.K, WIDE3_TERMS)
+        # the products of one pass's terms, written by the kernel's first
+        # pass and summed in place by its second
+        terms = B * M * tc * N
+        scratch = (torch.empty((3, Kg, terms), dtype=mp.SCALED_DTYPE, device=a4.device),
+                   torch.empty((3, terms), dtype=torch.int32, device=a4.device))
+        ptrs = [p for w in (*a4.words, *b4.words, *out) for p in _parts(w)] + list(scratch)
+        _launch("mp_wide3_matmul_launch", Kg, WIDE3, a4.device, ptrs, (B, M, Kd, N, c, tc))
+        LAUNCHES["mp_matmul_wide3"] += 1
+    return MPW(out)
+
+
+# ---------------------------------------------------------------------------
+# Three-word elementwise sum and product
+
+
+def _wide3_words(x: MPW, shape) -> tuple:
+    """x's words broadcast to `shape`, as (limbs, exp) pairs."""
+    shape = tuple(shape)
+    fill = (1,) * (len(shape) - x.ndim)
+    return tuple((torch.broadcast_to(w.limbs.reshape((w.K,) + fill + tuple(w.shape)),
+                                     (w.K,) + shape),
+                  torch.broadcast_to(w.exp, shape)) for w in x.words)
+
+
+def mp_wide3_add_plain(a: MPW, b: MPW, tally: Optional[wk.SkipTally] = None) -> MPW:
+    """Plain version of the three-word sum kernel: wadd_g_c; `tally` counts
+    its skipped word TwoSums."""
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    return MPW(MP(*w) for w in wk.wadd_g_c(_wide3_words(a, shape), _wide3_words(b, shape),
+                                           a.Kg, None if tally is None else tally.skip()))
+
+
+def mp_wide3_mul_plain(a: MPW, b: MPW, tally: Optional[wk.SkipTally] = None) -> MPW:
+    """Plain version of the three-word product kernel: wmul_g_c; `tally`
+    counts its skipped word TwoSums."""
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    return MPW(MP(*w) for w in wk.wmul_g_c(_wide3_words(a, shape), _wide3_words(b, shape),
+                                           a.Kg, None if tally is None else tally.skip()))
+
+
+def _wide3_ew(a: MPW, b: MPW, op: int) -> MPW:
+    if a.G != 3 or b.G != 3 or a.Kg != b.Kg:
+        raise ValueError(f"the three-word kernels take two values of G = 3 words of one "
+                         f"size, got {a!r} and {b!r}")
+    if _on_cpu(*a.words, *b.words):
+        return (mp_wide3_add_plain if op == 0 else mp_wide3_mul_plain)(a, b)
+    shape = tuple(torch.broadcast_shapes(a.shape, b.shape))
+    Kg = a.Kg
+    n = int(np.prod(shape, dtype=np.int64))
+    out = [_empty(shape, Kg, True, a.device) for _ in range(3)]
+    if n:
+        ptrs = [t.contiguous() for x in (a, b) for w in _wide3_words(x, shape) for t in w]
+        ptrs += [t for w in out for t in _parts(w)]
+        _launch("mp_wide3_ew_launch", Kg, WIDE3, a.device, ptrs, (n, op))
+        LAUNCHES["mp_wide3_add" if op == 0 else "mp_wide3_mul"] += 1
+    return MPW(out)
+
+
+def mp_wide3_add(a: MPW, b: MPW) -> MPW:
+    """a + b of three-word values (broadcast shapes): one kernel launch on
+    the card, the plain version (wadd_g_c) on the CPU."""
+    return _wide3_ew(a, b, 0)
+
+
+def mp_wide3_mul(a: MPW, b: MPW) -> MPW:
+    """a * b of three-word values (broadcast shapes): one kernel launch on
+    the card, the plain version (wmul_g_c) on the CPU."""
+    return _wide3_ew(a, b, 1)
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,13 @@ cancellation simply lowers a word's exponent, as in GMP.  G = 2 words of
 Kg = 9 limbs (432 bits) cover the reference's default `--precision 400`.
 
 The arithmetic is double-word expansion arithmetic whose digit is a
-scaled word: the word TwoSum is mpfloat.add_full and the exact word
-product mpfloat.mul_full; cross terms use the truncated base product.
+scaled word: at G = 2 the word TwoSum is mpfloat.add_full and the exact
+word product mpfloat.mul_full, cross terms use the truncated base product,
+all as torch ops, as in the JAX package.  At G = 3 a sum and a product are
+one elementwise CUDA kernel each on the card (kernels.mp_wide3_add and
+mp_wide3_mul; the JAX package's generic-G branch of its add and mul) over
+the compact word ops of ops/mpwide_kernel.py, whose plain versions run on
+the CPU; reciprocal, rsqrt, sqrt and division are built from them here.
 Every public function of ops/mpfloat.py sends MPW operands here, so linalg
 and the solver do not see the representation.  Factorizations never take
 an MPW: linalg.PosdefSolver factors word 0 rounded to at most 9 limbs and
@@ -23,7 +28,7 @@ small word sizes (G = 2, Kg = 3) as the JAX package's tests do.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List
 
 import numpy as np
 import torch
@@ -153,27 +158,6 @@ def round_to(a: MPW, K: int):
 # Word-level distillation and arithmetic
 
 
-def renormalize_words(ws: Sequence[MP], G: int) -> MPW:
-    """Distill a list of base words into G nearly non-overlapping words:
-    word TwoSum sweeps (mpfloat.add_full), the residue below word G-1
-    folded into it with base adds."""
-    xs = list(ws)
-    m = len(xs)
-    for k in range(G):
-        if k >= m - 1:
-            break
-        for i in range(m - 2, k - 1, -1):
-            xs[i], xs[i + 1] = mpf.add_full(xs[i], xs[i + 1])
-    if m > G:
-        tail = xs[G - 1]
-        for i in range(G, m):
-            tail = mpf.add(tail, xs[i])
-        xs[G - 1] = tail
-    while len(xs) < G:
-        xs.append(mpf.zeros(xs[0].shape, xs[0].K, xs[0].device, scaled=True))
-    return MPW(xs[:G])
-
-
 def neg(a: MPW) -> MPW:
     return _map(mpf.neg, a)
 
@@ -194,33 +178,21 @@ def add(a: MPW, b: MPW) -> MPW:
         s0, e0 = mpf.add_full(a.words[0], b.words[0])
         t = mpf.add(mpf.add(a.words[1], b.words[1]), e0)
         return MPW(mpf.add_full(s0, t))
-    ws = []
-    for g in range(a.G):
-        ws += [a.words[g], b.words[g]]
-    return renormalize_words(ws, a.G)
+    # imported here: kernels imports this module (MPW), and the three-word
+    # sum and product are its kernels; nothing else here depends on it
+    from .kernels import mp_wide3_add
+    return mp_wide3_add(a, b)
 
 
 def mul(a: MPW, b: MPW) -> MPW:
     _check_pair(a, b)
-    G = a.G
-    if G == 2:
+    if a.G == 2:
         p0, p1 = mpf.mul_full(a.words[0], b.words[0])
         t = mpf.add(mpf.add(mpf.mul(a.words[0], b.words[1]),
                             mpf.mul(a.words[1], b.words[0])), p1)
         return MPW(mpf.add_full(p0, t))
-    # exact two-word products below the last kept word diagonal, truncated
-    # products on it, one diagonal further for a clean last word
-    diag: List[List[MP]] = [[] for _ in range(G + 1)]
-    for g1 in range(G):
-        for g2 in range(G - g1):
-            n = g1 + g2
-            if n < G - 1:
-                hi, lo = mpf.mul_full(a.words[g1], b.words[g2])
-                diag[n].append(hi)
-                diag[n + 1].append(lo)
-            else:
-                diag[n].append(mpf.mul(a.words[g1], b.words[g2]))
-    return renormalize_words([w for d in diag for w in d], G)
+    from .kernels import mp_wide3_mul
+    return mp_wide3_mul(a, b)
 
 
 def _newton_steps(G: int) -> int:

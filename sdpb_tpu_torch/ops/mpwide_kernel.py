@@ -11,6 +11,11 @@ A value here is an SVal pair (float32 limbs [K, *shape], int32 exp
 |w1| <~ 2^-(24K) |w0|.  Shapes broadcast (the GEMM feeds [.., M, 1] and
 [.., 1, N] operands).
 
+The three-word kernels (csrc/mp_wide3.cuh: the elementwise sum and
+product, and the GEMM) compose the same word ops in the order of
+renormalize_words_c, wmul_g_c and wadd_g_c below; a value there is a
+tuple of G SVals.
+
 The Pallas kernel keeps its row stacks in a VMEM scratch ref and runs the
 sweeps as loops over dynamically indexed rows; here a row stack is a
 Python list of row tensors in the same LOGICAL order, which is all the
@@ -37,7 +42,7 @@ bit for bit.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +54,8 @@ from .mpfloat import (EXP_ZERO, MUL_UNIFORM_EXP, SCALED_DTYPE, _compact_hi, _exp
 
 SVal = Tuple[torch.Tensor, torch.Tensor]
 WVal = Tuple[SVal, SVal]
+# Called with the `apart` mask of each word TwoSum (word_two_sum_c)
+Skip = Optional[Callable[[torch.Tensor], None]]
 
 
 @lru_cache(maxsize=None)
@@ -228,6 +235,44 @@ def mul_full_c(a: SVal, b: SVal, K: int) -> Tuple[SVal, SVal]:
     return hi, _finish_renorm(lo_rows, K, exp_hi - 24 * K)
 
 
+def mul_full3_c(a: SVal, b: SVal, K: int) -> Tuple[SVal, SVal, SVal]:
+    """The exact word product as three words, hi + mid + lo == a * b up to
+    the last word's truncation (2^-(72K) of the product): mul_full_c with
+    a third ladder 48K binary digits down for the terms the second cannot
+    hold as normals, and the second word extracted error-free as the first
+    is (its residual and spill join the third).  The stacks, each in the
+    order of mul_full_c's lo stack: mid: lifted residual of hi, spill, two
+    zero rows, the mid slots; lo: lifted residual of mid, its spill, two
+    zero rows, the third ladder's slots."""
+    PE, D, shape = _pe(a, b, K, lifted=True)
+    exp_hi = torch.broadcast_to(a[1], shape) + torch.broadcast_to(b[1], shape) + \
+        center_for(K)
+    plan = device_const(("mul_plan_full", K), D.device, lambda: torch.as_tensor(
+        mul_term_plan_full(K), dtype=torch.long, device=D.device))
+    t = PE[plan]
+    Dr = D[plan % (K * K)]
+    eb = _exp_bits(t)
+    keep = (eb + Dr) >= 24
+    keep_mid = ~keep & ((eb + Dr + 24 * K) >= 24)
+    zero = torch.zeros_like(t)
+    hi_rows = list(_scale_pow2(torch.where(keep, t, zero), Dr))
+    mid = torch.empty_like(t)
+    mid[plan] = _scale_pow2(torch.where(keep_mid, t, zero), Dr + 24 * K)
+    third = torch.empty_like(t)
+    third[plan] = _scale_pow2(torch.where(keep | keep_mid, zero, t), Dr + 48 * K)
+    z = torch.zeros(shape, dtype=SCALED_DTYPE, device=a[0].device)
+    xs = sweeps(hi_rows, K, chain=False)
+    his, spill = _extract_hi(xs, K)
+    hi = _normalize_scaled(his, exp_hi, K)
+    ys = sweeps(list(_mul_pow2_lift(torch.stack(xs[K:]), 24 * K)) + spill + [z, z] +
+                list(mid), K, chain=False)
+    mids, spill2 = _extract_hi(ys, K)
+    mw = _normalize_scaled(mids, exp_hi - 24 * K, K)
+    lo_rows = list(_mul_pow2_lift(torch.stack(ys[K:]), 24 * K)) + spill2 + [z, z] + \
+        list(third)
+    return hi, mw, _finish_renorm(lo_rows, K, exp_hi - 48 * K)
+
+
 def wfma_term_c(a: WVal, b: WVal, K: int) -> Tuple[SVal, SVal]:
     """The accumulator-free part of wfma_acc_c: the exact hi product p0 and
     the carry cp = (a0 b1 + a1 b0) + p1 of one term a b.  Every term of a
@@ -258,3 +303,127 @@ def wfma_acc_c(acc: WVal, a: WVal, b: WVal, K: int) -> WVal:
 def wnormalize_c(a: WVal, K: int) -> WVal:
     """Re-establish |w1| <~ 2^-(24K) |w0| after wfma_acc_c chains."""
     return add_full_c(a[0], a[1], K)
+
+
+# ---------------------------------------------------------------------------
+# Three words: the elementwise sum and product and the GEMM
+#
+# The generic-G branches of the JAX package's mpwide.add and mul
+# (sdpb_tpu/ops/mpwide.py:229-306), with three changes, each where the JAX
+# branch misses mpmath at G = 3 (ROADMAP C; two words never meet them):
+#   * the word TwoSum leaves words more than 24 K digits apart as they
+#     are: add_full routes what its hi ladder cannot hold onto a lo ladder
+#     24 K digits down, whose float32 limbs reach only ~24 K + 150 digits
+#     below the top, and a word farther down loses its low limbs there;
+#   * after the bottom-up sweeps and the tail, two rounds of a bottom-up
+#     and a top-down pass of word TwoSums over the kept words (the
+#     compaction that closes mpfloat.renorm, a word up, twice, since a
+#     cancellation inside the first round can leave a zero word between
+#     two that overlap): after a cancellation the sweeps can leave word 0
+#     zero or holding a few digits and a lower word holding the value, so
+#     that word 0 no longer carries the value to 24 K digits, which the
+#     mixed-precision solves' round_to(r, Kf) reads (refined solves stalled
+#     at 2^-219, 2^-442 and 2^-456 of 648 bits with fewer passes);
+#   * the exact product a0 b0 is three words (mul_full3_c): a word's limbs
+#     can span a little more than 24 K digits (much more where its content
+#     has gaps), and a product of two such needs more than mul_full's two
+#     words, which lost ~2^-(48 K + 8) of it.
+
+
+def apart(ae: torch.Tensor, be: torch.Tensor, K: int) -> torch.Tensor:
+    """Where two words' exponents lie more than 24 K binary digits apart:
+    the smaller word then lies wholly below the larger's last digit, and
+    (larger, smaller) is already an exact word TwoSum."""
+    return torch.abs(ae - be) > 24 * K
+
+
+class SkipTally:
+    """Counts the word TwoSums that word_two_sum_c leaves as they are
+    (words more than 24 K digits apart), which the three-word kernels skip
+    alike: the data-dependent work their bounds take off.  `skip(needed)`
+    gives the callable an op takes, counting the elements that the bool
+    mask `needed` marks (all of them where it is None)."""
+
+    def __init__(self):
+        self._parts: List[torch.Tensor] = []
+
+    def skip(self, needed: Optional[torch.Tensor] = None) -> Skip:
+        return lambda far: self._parts.append((far if needed is None else far & needed).sum())
+
+    @property
+    def count(self) -> int:
+        return sum(int(p) for p in self._parts)
+
+
+def word_two_sum_c(a: SVal, b: SVal, K: int, skip: Skip = None) -> Tuple[SVal, SVal]:
+    """add_full_c(a, b), but (larger, smaller) as they are where the
+    exponents lie more than 24 K apart; `skip` gets that mask."""
+    hi, lo = add_full_c(a, b, K)
+    shape = hi[1].shape
+    far = torch.broadcast_to(apart(a[1], b[1], K), shape)
+    if skip is not None:
+        skip(far)
+    a_top = torch.broadcast_to(a[1] >= b[1], shape)
+
+    def pick(c, x, y):
+        return (torch.where(c, torch.broadcast_to(x[0], (K,) + shape),
+                            torch.broadcast_to(y[0], (K,) + shape)),
+                torch.where(c, torch.broadcast_to(x[1], shape),
+                            torch.broadcast_to(y[1], shape)))
+
+    return pick(far, pick(a_top, a, b), hi), pick(far, pick(a_top, b, a), lo)
+
+
+def renormalize_words_c(ws: List[SVal], G: int, K: int, skip: Skip = None) -> Tuple[SVal, ...]:
+    """renormalize_words of ops/mpwide.py (the JAX package's) with the
+    compact ops: G word TwoSum sweeps (word_two_sum_c) over the list,
+    bottom up, the residue below word G-1 folded into it (add_st_c), then
+    two rounds of a bottom-up and a top-down pass of word TwoSums over the
+    G words."""
+    xs = list(ws)
+    m = len(xs)
+    for k in range(min(G, m - 1)):
+        for i in range(m - 2, k - 1, -1):
+            xs[i], xs[i + 1] = word_two_sum_c(xs[i], xs[i + 1], K, skip)
+    if m > G:
+        tail = xs[G - 1]
+        for i in range(G, m):
+            tail = add_st_c(tail, xs[i], K)
+        xs[G - 1] = tail
+    xs = xs[:G]
+    for i in (list(range(G - 2, -1, -1)) + list(range(G - 1))) * 2:
+        xs[i], xs[i + 1] = word_two_sum_c(xs[i], xs[i + 1], K, skip)
+    return tuple(xs)
+
+
+def wmul_g_c(a: Tuple[SVal, ...], b: Tuple[SVal, ...], K: int,
+             skip: Skip = None) -> Tuple[SVal, ...]:
+    """The generic-G product: the top word product exact in three words
+    (mul_full3_c), the others below the last kept word diagonal in two
+    (mul_full_c), truncated ones (mul_st_c) on it, the words listed by
+    diagonal in the loop order of (g1, g2), then renormalize_words_c."""
+    G = len(a)
+    diag: List[List[SVal]] = [[] for _ in range(G + 1)]
+    for g1 in range(G):
+        for g2 in range(G - g1):
+            n = g1 + g2
+            if n == 0:
+                for d, w in enumerate(mul_full3_c(a[0], b[0], K)):
+                    diag[d].append(w)
+            elif n < G - 1:
+                hi, lo = mul_full_c(a[g1], b[g2], K)
+                diag[n].append(hi)
+                diag[n + 1].append(lo)
+            else:
+                diag[n].append(mul_st_c(a[g1], b[g2], K))
+    return renormalize_words_c([w for d in diag for w in d], G, K, skip)
+
+
+def wadd_g_c(a: Tuple[SVal, ...], b: Tuple[SVal, ...], K: int,
+             skip: Skip = None) -> Tuple[SVal, ...]:
+    """The generic-G sum: the words interleaved a0 b0 a1 b1 ..., then
+    renormalize_words_c."""
+    ws: List[SVal] = []
+    for wa, wb in zip(a, b):
+        ws += [wa, wb]
+    return renormalize_words_c(ws, len(a), K, skip)

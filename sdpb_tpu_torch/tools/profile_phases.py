@@ -23,7 +23,8 @@ Usage (on the card; `--device cpu` runs on the CPU and measures no peak):
         --omega 1e4 --reps 2 --json phases.json
 
 `--scaledLimbs`: 0 classic float64 (K = 4), 2-9 one scaled word, 10-18 the
-wide representation (two words of ceil(K/2) limbs).  The JAX tool's
+wide representation of two words of ceil(K/2) limbs, 19-27 of three words
+of ceil(K/3).  The JAX tool's
 compile cache (`--noCache`) has no counterpart: the port runs eagerly.
 """
 import argparse
@@ -387,7 +388,8 @@ def main(argv=None) -> int:
     p.add_argument("--fixture", required=True)
     p.add_argument("--scaledLimbs", type=int, default=5,
                    help="scaled float32 limbs: 0 = classic float64 limbs "
-                        "(K=4), 2-9 one scaled word, 10-18 two words (wide)")
+                        "(K=4), 2-9 one scaled word, 10-18 two words, 19-27 "
+                        "three words (wide)")
     p.add_argument("--quant", type=int, default=32)
     p.add_argument("--omega", default="1e6")
     p.add_argument("--reps", type=int, default=5)

@@ -62,7 +62,7 @@ def _spd_scaled(rng, B, n, K, decades=2.5):
     return tmp.f64_limbs_to_scaled_parts((A + np.swapaxes(A, -1, -2)) / 2, K)
 
 
-@pytest.mark.parametrize("K", list(range(2, 10)))
+@pytest.mark.parametrize("K", list(range(2, 14)))
 def test_kernels_match_plain_versions(cuda, K):
     rng = np.random.default_rng(K)
     # broadcast batch, Kd = 11 (not a multiple of 8), N = 1
@@ -129,7 +129,8 @@ def test_scaled_dispatch_launches_or_raises(cuda):
     assert tk.LAUNCHES == {"mp_matmul": 0, "mp_cholesky": 0, "mp_solve_triangular": 0,
                            "mp_matmul_scaled": 1, "mp_cholesky_scaled": 1,
                            "mp_solve_triangular_scaled": 1,
-                           "mp_matmul_wide": 0, "peak_probe": 0}
+                           "mp_matmul_wide": 0, "mp_matmul_wide3": 0, "mp_wide3_add": 0,
+                           "mp_wide3_mul": 0, "peak_probe": 0}
     wrong_limbs = tmp.MP(a.limbs.double(), a.exp)
     wrong_exp = tmp.MP(a.limbs, a.exp.long())
     classic = tmp.MP(a.limbs.double())
@@ -434,18 +435,18 @@ def test_wide_kernel_matches_plain_version(cuda, Kg, monkeypatch):
 
 
 def test_wide_dispatch_raises_on_what_the_kernel_cannot_take(cuda):
-    """G = 3 raises on the card (and on the CPU); a wide operand never runs
+    """G = 4 raises on the card (and on the CPU); a wide operand never runs
     the plain version on the card."""
     from sdpb_tpu_torch.ops import mpwide as tmw
 
     rng = np.random.default_rng(310)
     a = _on(_wide(rng, (2, 2), 10), cuda)
-    g3 = tmw.MPW(a.words + a.words[:1])
+    g4 = tmw.MPW(a.words + a.words)
     tk.reset_launches()
-    with pytest.raises(ValueError, match="G = 2"):
-        tk.mp_matmul_wide(g3, g3)
+    with pytest.raises(ValueError, match="G = 2 or G = 3"):
+        tk.mp_matmul_wide(g4, g4)
     with pytest.raises(ValueError):
-        tk.mp_matmul_wide(_on(g3, "cpu"), _on(g3, "cpu"))
+        tk.mp_matmul_wide(_on(g4, "cpu"), _on(g4, "cpu"))
     with pytest.raises(TypeError):
         tk.mp_matmul_wide(tmw.MPW(tmp.MP(w.limbs.double(), w.exp) for w in a.words), a)
     assert tk.LAUNCHES["mp_matmul_wide"] == 0
@@ -747,3 +748,74 @@ def test_a_failed_capture_raises(cuda, monkeypatch):
     monkeypatch.setattr(step, "_stats_finite", reads_back)
     with pytest.raises(RuntimeError, match="CUDA graph capture of the iteration failed"):
         _runner(cuda)
+
+
+# ---------------------------------------------------------------------------
+# Three words: the GEMM and the elementwise sum and product
+
+
+def _wide3(rng, shape, Kg, spread=20):
+    """A random three-word MPW of Kg-limb words (CPU): float64 limb stacks
+    with fresh bits in every limb, staged exactly."""
+    from sdpb_tpu_torch.ops import mpwide as tmw
+    l64 = rand_limbs(rng, shape, -(-(72 * Kg) // 53) + 3)
+    l64 *= 2.0 ** rng.integers(-spread, spread + 1, shape)
+    return tmw.wide_parts_to_mp(tmw.f64_limbs_to_wide_parts(l64, 3 * Kg), "cpu")
+
+
+@pytest.fixture
+def three_words(monkeypatch):
+    """Three words for any limb count (Kg = 3 is a test size)."""
+    from sdpb_tpu_torch.ops import mpwide as tmw
+    monkeypatch.setattr(tmw, "wide_config", lambda K: (3, -(-K // 3)))
+
+
+@pytest.mark.parametrize("Kd", [1, 5, 20, 57])
+@pytest.mark.parametrize("Kg", [3, 7, 9])
+def test_wide3_kernel_matches_plain_version(cuda, three_words, Kg, Kd, monkeypatch):
+    """The three-word GEMM bit for bit with its plain version on the card
+    and on the CPU at M, N in {1, 15} and a broadcast batch, the chunk of
+    the word size (39, 7, 4: Kd = 57 padded) and, at Kg = 3, a chunk of 4
+    in passes of one chunk each."""
+    rng = np.random.default_rng(700 + 10 * Kg + Kd)
+    for M, N, B in ((1, 15, 2), (15, 1, 3)):
+        a, b = _wide3(rng, (B, M, Kd), Kg), _wide3(rng, (1, Kd, N), Kg)
+        tk.reset_launches()
+        out = tk.mp_matmul_wide(_on(a, cuda), _on(b, cuda))
+        assert tk.LAUNCHES["mp_matmul_wide3"] == 1 and tk.LAUNCHES["mp_matmul_wide"] == 0
+        a4, b4, unflatten = tk._canon_wide_pair(_on(a, cuda), _on(b, cuda))
+        assert _same_wide(out, unflatten(tk.mp_matmul_wide3_plain(a4, b4)))
+        assert _same_wide(out, tk.mp_matmul_wide(a, b))
+    if Kg == 3:
+        monkeypatch.setattr(tk, "wide3_chunk", lambda K: 4)
+        monkeypatch.setattr(tk, "WIDE3_TERMS", 1)
+        a, b = _wide3(rng, (2, 3, Kd), Kg), _wide3(rng, (2, Kd, 2), Kg)
+        out = tk.mp_matmul_wide(_on(a, cuda), _on(b, cuda))
+        assert _same_wide(out, tk.mp_matmul_wide(a, b))
+
+
+@pytest.mark.parametrize("Kg", [3, 7, 8, 9])
+def test_wide3_elementwise_kernels_match_plain_versions(cuda, three_words, Kg):
+    """The three-word sum and product: one launch each, bit for bit with
+    the plain versions on the card and on the CPU, broadcast shapes; the
+    Newton ops over them (division, sqrt) the same on card and CPU."""
+    rng = np.random.default_rng(800 + Kg)
+    a, b = _wide3(rng, (4, 5), Kg), _wide3(rng, (5,), Kg)
+    A, Bv = _on(a, cuda), _on(b, cuda)
+    for op, plain, name in ((tk.mp_wide3_add, tk.mp_wide3_add_plain, "mp_wide3_add"),
+                            (tk.mp_wide3_mul, tk.mp_wide3_mul_plain, "mp_wide3_mul")):
+        tk.reset_launches()
+        out = op(A, Bv)
+        assert tk.LAUNCHES[name] == 1
+        assert _same_wide(out, plain(A, Bv)) and _same_wide(out, op(a, b))
+    pos = tmp.abs_(b)
+    assert _same_wide(tmp.div(A, _on(pos, cuda)), tmp.div(a, pos))
+    assert _same_wide(tmp.sqrt(_on(pos, cuda)), tmp.sqrt(pos))
+
+
+def test_wide3_elementwise_kernels_refuse_two_words(cuda):
+    """A two-word operand raises in the three-word kernels' wrappers."""
+    rng = np.random.default_rng(810)
+    a = _on(_wide(rng, (2, 2), 10), cuda)
+    with pytest.raises(ValueError, match="G = 3"):
+        tk.mp_wide3_add(a, a)

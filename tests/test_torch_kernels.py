@@ -178,7 +178,8 @@ def test_dispatch_is_by_device_without_fallback():
     assert tk.LAUNCHES == {"mp_matmul": 0, "mp_cholesky": 0,
                            "mp_solve_triangular": 0, "mp_matmul_scaled": 0,
                            "mp_cholesky_scaled": 0, "mp_solve_triangular_scaled": 0,
-                           "mp_matmul_wide": 0, "peak_probe": 0}
+                           "mp_matmul_wide": 0, "mp_matmul_wide3": 0, "mp_wide3_add": 0,
+                           "mp_wide3_mul": 0, "peak_probe": 0}
     meta = tmp.MP(torch.empty((2, 2, 3, 3), dtype=torch.float64, device="meta"))
     for call in (lambda: tk.mp_matmul(meta, meta), lambda: tk.mp_cholesky(meta),
                  lambda: tk.mp_solve_triangular(meta, meta),

@@ -331,6 +331,6 @@ def test_main_refuses_a_missing_card_and_bad_limbs(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA is not available"):
         tpp.main(["--fixture", CERTIFICATE, "--scaledLimbs", "0", "--device", "cuda"])
-    for bad in ("1", "19"):
+    for bad in ("1", "28"):
         with pytest.raises(SystemExit):
             tpp.main(["--fixture", CERTIFICATE, "--scaledLimbs", bad, "--device", "cpu"])

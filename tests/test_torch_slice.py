@@ -605,17 +605,19 @@ def test_scaled_cli_on_cpu_matches_jax(tmp_path, monkeypatch):
 
 
 def test_scaled_cli_refuses_the_wide_path_and_a_missing_card(tmp_path):
-    """Above 18 float32 limbs (--precision > 424, three wide words) the
-    scaled CLI stops and names the unported three-word path; --device cuda
-    without CUDA stops too."""
+    """Above 27 float32 limbs (--precision > 640, past three wide words)
+    the scaled CLI stops and names the limit; --device cuda without CUDA
+    stops too."""
     from sdpb_tpu_torch.cli import sdpb as cli
 
     assert cli.limbs_for_precision(208, 24) == 9
     assert cli.limbs_for_precision(209, 24) == 10
     assert cli.limbs_for_precision(424, 24) == 18
     assert cli.limbs_for_precision(425, 24) == 19
-    for prec in ("425", "600"):
-        with pytest.raises(SystemExit, match="ROADMAP B7"):
+    assert cli.limbs_for_precision(640, 24) == 27
+    assert cli.limbs_for_precision(641, 24) == 28
+    for prec in ("641", "700"):
+        with pytest.raises(SystemExit, match="at most 27"):
             cli.run(["-s", str(CERTIFICATE), "-c", str(tmp_path / "ck"), "--arithmetic",
                      "scaled", "--device", "cpu", "--precision", prec])
     if not torch.cuda.is_available():

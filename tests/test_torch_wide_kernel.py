@@ -226,13 +226,16 @@ def test_plain_gemm_against_mpmath_at_real_word_sizes(Kw):
 
 
 def test_wide_gemm_refuses_what_it_cannot_take(small):
-    """G other than 2 raises (on the CPU too); so do an MP operand and
-    differing word sizes.  Kd = 0 gives zeros."""
+    """G other than 2 or 3 raises (on the CPU too), and so do operands of
+    different word counts; so do an MP operand and differing word sizes.
+    Kd = 0 gives zeros."""
     rng = np.random.default_rng(8)
     a = _wide(rand_wide_vals(rng, 4, PREC, 2), (2, 2))
-    g3 = tmw.MPW(a.words + a.words[:1])
-    with pytest.raises(ValueError, match="G = 2"):
-        tk.mp_matmul_wide(g3, g3)
+    g3, g4 = tmw.MPW(a.words + a.words[:1]), tmw.MPW(a.words + a.words)
+    with pytest.raises(ValueError, match="G = 2 or G = 3"):
+        tk.mp_matmul_wide(g4, g4)
+    with pytest.raises(ValueError, match="G = 2 or G = 3"):
+        tk.mp_matmul_wide(a, g3)
     with pytest.raises(TypeError):
         tk.mp_matmul_wide(a, a.words[0])
     b = _wide(rand_wide_vals(rng, 4, 24 * 10, 2), (2, 2), 10)
