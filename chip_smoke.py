@@ -105,8 +105,9 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      capture seconds;
  17. three words (--precision 640: 3 words x 9 float32 limbs) and classic
      K = 13: the three-word kernels (the GEMM at the ladder's two GEMM
-     shapes, the elementwise sum and product at S's and the X blocks'
-     shapes, Kg = 9 and 7) and the classic K = 13 GEMM, factor and solves
+     shapes and two edge shapes of its tiling, the elementwise sum and
+     product at S's and the X blocks' shapes and a 35-element one, Kg = 9
+     and 7; Kg = 8 at the smaller shapes and the edge ones) and the classic K = 13 GEMM, factor and solves
      (phase 4's shapes) against their plain versions, bit for bit, with
      mpmath spot checks, times and bounds; the certificate to optimality at
      640 bits in three words in the CLI's chunked loop (y* matches); the
@@ -116,8 +117,10 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      ladder in the chunked loop in chunks of WIDE3_CHUNK against that host
      loop run, identical, with the graphs' sizes and a replay's device ms.
 Every CLI call writes its checkpoints into a temporary directory (-c), and
-the ladder phases but 15 pass --timingRun never.  The ladder's zip is
-parsed once per limb count (read_sdp cached), not at every call.
+the ladder phases but 15 pass --timingRun never.  Each SDP file is
+parsed once per limb count, those the phases read ahead in worker
+processes while the build runs (_SdpReads), and the classic K = 13
+libraries build beside phases 3-16.
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is the kernels' JSON record, and the line before that the card's name
 and power limit.  Without CUDA, or outside a checkout, the script exits
@@ -126,19 +129,22 @@ non-zero and prints no result.
 Two diagnostics run instead of the phases when asked for:
 
     python3 chip_smoke.py --classic-limbs 10 11 12
-    python3 chip_smoke.py --digits
+    python3 chip_smoke.py --digits [640] [400]
 
 --classic-limbs K...: the classic kernels built at each K and held to their
 plain versions at phase 4's shapes, as phase 17 holds K = 13 (times,
-bounds).  --digits: the ladder at --precision 640 in three words with 3
-and 4 refinement passes (--factorLimbs 9, the default, and 8: the scaled
-factor carries ~188 bits at both) and in classic K = 13 with and without
-refinement (--factorLimbs 7, the default, and 13), and the digits each
-pair of runs' objectives share.
+bounds).  --digits: the ladder at --precision 640 in three words with the
+port's 4 refinement passes and the JAX package's rule's 3, and in classic
+K = 13 with and without refinement (--factorLimbs 7, the default, and
+13); at --precision 400 in two words with 3 and 2 passes, in classic K = 8
+with and without refinement and in classic K = 13 at 640 bits; the digits
+each run's objectives share with the classic runs, and the chunked loop's
+s/replay in three words at 4 and 3 passes and in two words at 3 and 2
+(both precisions, or those named).
 """
 import argparse
+import atexit
 import contextlib
-import functools
 import io
 import json
 import math
@@ -147,6 +153,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from fractions import Fraction
 from pathlib import Path
@@ -162,7 +169,7 @@ WIDE_ITERATIONS = 1
 WIDE3_ITERATIONS = 2
 # phase 15: the checkpointed solve's --maxIterations (two chunks of 8) and
 # the resumed solves'
-CHECKPOINT_ITERATIONS, RESUME_ITERATIONS = 15, 7
+CHECKPOINT_ITERATIONS, RESUME_ITERATIONS = 8, 1
 # --maxIterations of each ladder solve beside a profile (phase 13): 2 and 1
 # steady iterations, before and after it
 BRACKET_ITERATIONS = {"scaled": 2, "wide": 1}
@@ -221,8 +228,9 @@ WIDE3_KERNELS = {
     "mp_wide3_mul": ("sdpb_tpu_torch/csrc/mp_wide3_ops.cu", "sdpb_tpu/ops/mpwide.py:280"),
 }
 # the shapes the three-word path gives its elementwise kernels on the
-# ladder: S and the X blocks
-WIDE3_EW_SHAPES = ((120, 57, 57), (120, 20, 20))
+# ladder: S and the X blocks; and an edge shape (35 elements: a ragged
+# last block)
+WIDE3_EW_SHAPES = ((120, 57, 57), (120, 20, 20), (1, 5, 7))
 PROBE_KERNEL = ("peak_probe", "sdpb_tpu_torch/csrc/peak_probe.cu",
                 "sdpb_tpu/tools/profile_phases.py:97")
 # phase 17: --precision 640, three words of 9 float32 limbs (27) against
@@ -230,11 +238,17 @@ PROBE_KERNEL = ("peak_probe", "sdpb_tpu_torch/csrc/peak_probe.cu",
 # its chunked run (two chunks over WIDE3_ITERATIONS + 1 iterations)
 WIDE3_PREC = ("--precision", "640", "--arithmetic", "scaled")
 CLASSIC13_PREC = ("--precision", "640")
-WIDE3_CHECK_KG = (9, 7)
+WIDE3_CHECK_KG = (9, 8, 7)
+# the word sizes whose checks run only the smaller of the ladder's GEMM and
+# elementwise shapes, and the edge shapes (Kg = 8, --precision 505-576:
+# the plain versions at the larger shapes take 10-20 s each)
+WIDE3_SMALL_KG = (8,)
 WIDE3_CHUNK = 2
 # the digits phase 17's three-word and classic K = 13 ladder objectives
-# must share: more than two 216-bit words hold (~130)
-WIDE3_DIGITS = 135
+# must share (3 iterations): the port's 4 refinement passes of the
+# ~188-bit scaled factor (solver/params.py::refinement_passes) gave 179.6,
+# the JAX package's 3 gave 156.4; classic K = 13 agrees with itself to 192.8
+WIDE3_DIGITS = 175
 PROBE_TILE, PROBE_CHECK_STEPS, PROBE_STEPS = (512, 512), 2048, 65536
 # phase 13's profiler runs: (label, --scaledLimbs, --reps); the gate reads
 # each profile's fastest call, so a profile of one call meets a slow
@@ -263,8 +277,64 @@ LADDER_PREC = {"classic": ("--precision", "216"),
                "wide": ("--precision", "400", "--arithmetic", "scaled")}
 
 
+# The (file, float64 limbs) the phases read, in the order they first read
+# them: the ladder at 216 bits classic (5), 208 scaled (6), 400 wide (9)
+# and classic (8), the profile's classic K = 4, then the perturbed ladder
+# scaled, wide and classic (phase 16), the ladder at 640 bits in three
+# words (14) and classic (13); parsed ahead in worker processes (_SdpReads)
+SDP_READS = ((LADDER, 5), (LADDER, 6), (LADDER, 9), (LADDER, 8), (LADDER, 4),
+             (LADDER_PERTURBED, 6), (LADDER_PERTURBED, 9), (LADDER_PERTURBED, 5),
+             (LADDER, 14), (LADDER, 13))
+
+
 class PhaseError(RuntimeError):
     pass
+
+
+def _read_sdp(path, K):
+    """sdp_zip.read_sdp in a worker process of _SdpReads (a task names this
+    function: the parent's sdp_zip.read_sdp is then the cache itself)."""
+    import numpy as np
+    from sdpb_tpu_torch.io import sdp_zip
+    return sdp_zip.read_sdp(path, K, np.float64)
+
+
+class _SdpReads:
+    """sdp_zip.read_sdp with each (file, limbs, dtype) parsed once: nothing
+    here changes a problem once read, and parsing the ladder's decimal
+    strings takes 8-25 s on one core (longer with more limbs), which every
+    CLI call would spend again.  The reads in `ahead` run in `workers`
+    processes (spawned: the parent holds a CUDA context; none when `ahead`
+    is empty) from the start, so that they overlap the build and the first
+    phases; close() stops them."""
+
+    def __init__(self, read, ahead, workers=3):
+        import multiprocessing
+        import numpy as np
+        from concurrent.futures import ProcessPoolExecutor
+        self.read, self.done = read, {}
+        self.pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context(
+            "spawn")) if ahead else None
+        self.ahead = {self._key(path, K, np.float64): self.pool.submit(_read_sdp, str(path), K)
+                      for path, K in ahead}
+
+    @staticmethod
+    def _key(path, K, np_dtype):
+        import numpy as np
+        return str(Path(path).resolve()), int(K), np.dtype(np_dtype).str
+
+    def __call__(self, path, K, np_dtype=None):
+        import numpy as np
+        np_dtype = np.float64 if np_dtype is None else np_dtype
+        key = self._key(path, K, np_dtype)
+        if key not in self.done:
+            ahead = self.ahead.pop(key, None)
+            self.done[key] = ahead.result() if ahead else self.read(path, K, np_dtype)
+        return self.done[key]
+
+    def close(self):
+        if self.pool is not None:
+            self.pool.shutdown(wait=True, cancel_futures=True)
 
 
 def check(cond, msg):
@@ -295,12 +365,17 @@ def device_phase(torch):
 
 
 def build_phase(kernels):
+    """Phase 2: the libraries the phases load, as many objects at a time as
+    there are cores; the classic K = 13 ones, which only phase 17 loads and
+    whose objects compile longest (50-100 s), in a thread beside phases
+    3-16.  Returns the seconds and a callable that waits for that thread
+    and loads its libraries (raising what its build raised)."""
     phase("2. build")
     t0 = time.time()
     # every limb count but classic K = 10-12, which no phase runs (their
     # objects compile longest after K = 13's; tests/test_torch_cuda.py
     # builds them)
-    Ks = [K for K in kernels.K_RANGE if K not in (10, 11, 12)]
+    Ks = [K for K in kernels.K_RANGE if K not in (10, 11, 12, 13)]
     built = kernels.build(Ks)
     for rep in (*kernels.REPRESENTATIONS, kernels.WIDE, kernels.WIDE3):
         for K in kernels.k_range(rep):
@@ -311,8 +386,27 @@ def build_phase(kernels):
           f"K={list(kernels.SCALED_K_RANGE)} scaled, the two-word GEMM for "
           f"Kg={list(kernels.WIDE_KG)}, the three-word GEMM for "
           f"Kg={list(kernels.WIDE3_KG)} and the peak probe (compiled now: "
-          f"{len(built)} libraries)")
-    return time.time() - t0
+          f"{len(built)} libraries); classic K=13 building beside phases 3-16")
+    raised = []
+
+    def late():
+        try:
+            kernels.build([13], (False,), (), probe=False, wide3_Ks=())
+        except BaseException as e:   # re-raised where phase 17 waits
+            raised.append(e)
+
+    thread = threading.Thread(target=late)
+    thread.start()
+
+    def wait():
+        t = time.time()
+        thread.join()
+        if raised:
+            raise raised[0]
+        kernels._library(13, False)
+        return time.time() - t
+
+    return time.time() - t0, wait
 
 
 def exactness_phase(torch, mp, kernels, dev):
@@ -841,25 +935,29 @@ def certificate_phase(torch, kernels, cli, dev, scaled, prec="150", path=None):
 
 @contextlib.contextmanager
 def _shape_tally(kernels):
-    """Count the calls of the GEMM, factor and triangular-solve wrappers by
-    (wrapper, representation, limbs, shape of a, shape of b, lower) while
-    the block runs (the solver reaches them as attributes of the kernels
-    module; the factor has no b: its shape of b is ()); the wrappers' own
+    """Count the calls of the GEMM, factor and triangular-solve wrappers and
+    of the three-word sum and product by (wrapper, representation, limbs,
+    shape of a, shape of b, lower) while the block runs (the solver reaches
+    them as attributes of the kernels module; the factor has no b: its
+    shape of b is (); the representation of a wide operand is "wide" for
+    two words, "wide3" for three, its limbs the word's); the wrappers' own
     launch counters are untouched."""
     tally = {}
     saved = {n: getattr(kernels, n) for n in ("mp_matmul", "mp_matmul_wide", "mp_cholesky",
-                                              "mp_solve_triangular")}
+                                              "mp_solve_triangular", "mp_wide3_add",
+                                              "mp_wide3_mul")}
 
     def shim(name, fn):
         def call(a, *rest, **kw):
-            wide = name == "mp_matmul_wide"
+            wide = hasattr(a, "Kg")
             lower, bsh = None, ()
             if name != "mp_cholesky":
                 bsh = tuple(rest[0].shape)
             if name == "mp_solve_triangular":
                 lower = bool(kw.get("lower", rest[1] if len(rest) > 1 else True))
-            key = (name, "wide" if wide else ("scaled" if a.scaled else "classic"),
-                   a.Kg if wide else a.K, tuple(a.shape), bsh, lower)
+            rep = ("wide3" if a.G == 3 else "wide") if wide else \
+                ("scaled" if a.scaled else "classic")
+            key = (name, rep, a.Kg if wide else a.K, tuple(a.shape), bsh, lower)
             tally[key] = tally.get(key, 0) + 1
             return fn(a, *rest, **kw)
         return call
@@ -878,7 +976,7 @@ def _call_label(key):
     if name == "mp_cholesky":
         return f"{name} {rep} K={K} {list(ash)}"
     side = "" if lower is None else (" lower" if lower else " upper")
-    op = "@" if lower is None else "\\"
+    op = {"mp_wide3_add": "+", "mp_wide3_mul": "*"}.get(name, "@" if lower is None else "\\")
     return f"{name} {rep} K={K} {list(ash)}{op}{list(bsh)}{side}"
 
 
@@ -893,11 +991,12 @@ def iteration_kernel_ms(torch, mp, kernels, dev, tally, iterations, time_ms=_tim
     for key, count in sorted(tally.items(), key=lambda kv: _call_label(kv[0])):
         name, rep, K, ash, bsh, lower = key
         rng = np.random.default_rng(sum(ash) + 7 * sum(bsh) + K)
-        if rep == "wide":
+        if rep in ("wide", "wide3"):
             a, b = (mpwide.MPW(mp.MP(w.limbs.to(dev), w.exp.to(dev))
-                               for w in _wide_operand(rng, sh, K, 2.0).words)
+                               for w in _wide_operand(rng, sh, K, 2.0, G=2 + (rep == "wide3"))
+                               .words)
                     for sh in (ash, bsh))
-            counter = name
+            counter = name + "3" if name == "mp_matmul_wide" and rep == "wide3" else name
         else:
             K64 = -(-(24 * K) // 53) + 1 if rep == "scaled" else K
             # the factor's operand symmetric positive definite (G G^T + n I)
@@ -1721,9 +1820,11 @@ def tools_phase(torch, mp, kernels, cli, dev, smi):
 
 
 def wide3_kernel_rows(torch, kernels, dev):
-    """The three-word kernels against their plain versions, Kg = 9 and 7:
-    the GEMM at the ladder's two GEMM shapes, the elementwise sum and
-    product at S's and the X blocks' shapes.  Bit-identical words, mpmath
+    """The three-word kernels against their plain versions at each Kg of
+    WIDE3_CHECK_KG: the GEMM at the ladder's two GEMM shapes (the smaller
+    one at WIDE3_SMALL_KG) and two edge shapes, the elementwise sum and
+    product at S's and the X blocks' shapes (the X blocks' at
+    WIDE3_SMALL_KG) and an edge shape.  Bit-identical words, mpmath
     spot checks (the GEMM within 2^-(72 Kg - 26) of the sum of the terms'
     magnitudes, sum and product within 2^-(72 Kg - 22) of the operands'
     magnitudes and of the product), kernel ms (median of 5), plain ms
@@ -1761,7 +1862,13 @@ def wide3_kernel_rows(torch, kernels, dev):
               f"they were (words more than {24 * Kg} digits apart)")
 
     for Kg in WIDE3_CHECK_KG:
-        for (B, M, Kd, N) in GEMM_SHAPES:
+        # the ladder's shapes, then edge shapes of the kernel's tiling: one
+        # unpadded chunk of Kd < c terms and Kd = c + 1 (two chunks, the
+        # second padded), B = 1, 35 outputs (a ragged last block of 32)
+        c = kernels.wide3_chunk(3 * Kg)
+        small = Kg in WIDE3_SMALL_KG
+        for (B, M, Kd, N) in GEMM_SHAPES[:1 if small else None] + ((1, 5, c - 1, 7),
+                                                                 (1, 5, c + 1, 7)):
             a = _wide_operand(rng, (B, M, Kd), Kg, 2.0, G=3)
             b = _wide_operand(rng, (B, Kd, N), Kg, 2.0, G=3)
 
@@ -1776,7 +1883,7 @@ def wide3_kernel_rows(torch, kernels, dev):
                  Kg, a, b, kernels.mp_matmul_wide,
                  lambda A, Bm, t: kernels.mp_matmul_wide3_plain(
                      *kernels._canon_wide_pair(A, Bm)[:2], t), spot, 26)
-        for shape in WIDE3_EW_SHAPES:
+        for shape in WIDE3_EW_SHAPES[1 if small else 0:]:
             a = _wide_operand(rng, shape, Kg, 2.0, G=3)
             b = _wide_operand(rng, shape, Kg, 2.0, G=3)
             for name, add in (("mp_wide3_add", True), ("mp_wide3_mul", False)):
@@ -1852,32 +1959,81 @@ def classic_limbs_diagnostic(torch, mp, kernels, dev, Ks):
         kernel_phase(torch, mp, kernels, dev, scaled=False, K=K)
 
 
-def digits_diagnostic(torch, kernels, cli, dev):
-    """--digits: the ladder at --precision 640, WIDE3_ITERATIONS + 1
-    iterations each in the host loop, in three words with 3 and 4
-    refinement passes and in classic K = 13 with 2 and none, and the digits
-    each three-word run shares with each classic run and classic with
-    itself."""
-    phase("digits: the ladder at --precision 640, three words and classic K=13, by "
-          "refinement passes")
+def digits_diagnostic(torch, kernels, cli, dev, groups=("640", "400")):
+    """--digits [640] [400]: the ladder in the host loop.  At --precision
+    640 (WIDE3_ITERATIONS + 1 iterations): classic K = 13 with 2
+    refinement passes (Kf = 7, the default) and none (Kf = 13), three words
+    with the port's 4 passes and the JAX package's rule's 3.  At
+    --precision 400 (WIDE_ITERATIONS + 1 iterations): classic K = 8 with 2
+    passes (Kf = 5, the default) and none (Kf = 8), classic K = 13 at
+    --precision 640 (a reference that resolves more digits than K = 8 has),
+    two words of 9 with the port's 3 passes and the JAX rule's 2.  Prints
+    the digits each run shares with each classic run before it, and the
+    ladder's s/replay in the chunked loop (chunks of WIDE3_CHUNK,
+    WIDE3_ITERATIONS + 1 iterations) in three words at 4 and 3 passes and
+    in two words at 3 and 2.  The JAX rule, ceil(K / Kf), is put in place of
+    solver/params.py::refinement_passes for the runs that name it."""
+    from sdpb_tpu_torch.solver import solve
+    phase(f"digits: the ladder at --precision {' and '.join(groups)} by refinement passes")
     t0 = time.time()
-    kernels.build([7, 8, 9, 13], wide_Ks=(), probe=False, wide3_Ks=(9,))
+    kernels.build([5, 7, 8, 9, 13], wide_Ks=(9,), probe=False,
+                  wide3_Ks=(9,) if "640" in groups else ())
     print(f"build: {time.time() - t0:.1f} s")
-    runs = {}
-    for label, prec, path in (
-            ("classic K=13, Kf=7 (2 passes)", CLASSIC13_PREC, "classic"),
-            ("classic K=13, Kf=13 (none)", CLASSIC13_PREC + ("--factorLimbs", "13"), "classic"),
-            ("three words, Kf=9 (3 passes)", WIDE3_PREC, "wide3"),
-            ("three words, Kf=8 (4 passes)", WIDE3_PREC + ("--factorLimbs", "8"), "wide3")):
-        print(f"{label}:")
-        runs[label] = _ladder_run(torch, kernels, cli, dev, list(prec), WIDE3_ITERATIONS,
-                                  kernel_path(kernels, path))
-    labels = list(runs)
-    for i, mine in enumerate(labels):
-        for ref in labels[:min(i, 2)]:
-            digits, same = _shared_digits(runs[mine], runs[ref])
-            print(f"{mine} against {ref}: {digits:.1f} digits shared over "
-                  f"{runs[mine]['iterations']} iterations, step lengths identical in {same}")
+    port_rule = solve.refinement_passes
+
+    def jax_rule(K, kf, scaled):
+        return 0 if K <= kf else -(-K // kf)
+
+    wide = LADDER_PREC["wide"]
+    runs = {
+        "640": (WIDE3_ITERATIONS, (
+            ("classic K=13, Kf=7 (2 passes)", CLASSIC13_PREC, "classic", False),
+            ("classic K=13, Kf=13 (none)", CLASSIC13_PREC + ("--factorLimbs", "13"), "classic",
+             False),
+            ("three words 3x9, Kf=9 (4 passes)", WIDE3_PREC, "wide3", False),
+            ("three words 3x9, Kf=9, the JAX rule (3 passes)", WIDE3_PREC, "wide3", True))),
+        "400": (WIDE_ITERATIONS, (
+            ("classic K=8, Kf=5 (2 passes)", ("--precision", "400"), "classic", False),
+            ("classic K=8, Kf=8 (none)", ("--precision", "400", "--factorLimbs", "8"),
+             "classic", False),
+            ("classic K=13 at --precision 640, Kf=7 (2 passes)", CLASSIC13_PREC, "classic",
+             False),
+            ("two words 2x9, Kf=9 (3 passes)", wide, "wide", False),
+            ("two words 2x9, Kf=9, the JAX rule (2 passes)", wide, "wide", True)))}
+    replays = {"640": ("three-word", WIDE3_PREC, "wide3", ("4 passes", "3 passes")),
+               "400": ("two-word", wide, "wide", ("3 passes", "2 passes"))}
+    try:
+        for group in groups:
+            iterations, todo = runs[group]
+            got = {}
+            for label, prec, path, jax in todo:
+                solve.refinement_passes = jax_rule if jax else port_rule
+                print(f"{label}:")
+                got[label] = _ladder_run(torch, kernels, cli, dev, list(prec), iterations,
+                                         kernel_path(kernels, path))
+            labels = list(got)
+            for i, mine in enumerate(labels):
+                for ref in labels[:i]:
+                    if not ref.startswith("classic"):
+                        continue
+                    digits, same = _shared_digits(got[mine], got[ref])
+                    print(f"{mine} against {ref}: {digits:.1f} digits shared over "
+                          f"{got[mine]['iterations']} iterations, step lengths identical in "
+                          f"{same}")
+        for group in groups:
+            name, prec, path, (port, jax) = replays[group]
+            replay = {}
+            for label, rule in ((port, port_rule), (f"the JAX rule, {jax}", jax_rule)):
+                solve.refinement_passes = rule
+                run = _ladder_run(torch, kernels, cli, dev, list(prec), WIDE3_ITERATIONS,
+                                  kernel_path(kernels, path), chunk_iterations=WIDE3_CHUNK)
+                replay[label] = run["s_per_it"]
+            extra = replay[port] - replay[f"the JAX rule, {jax}"]
+            print(f"{name} ladder in the chunked loop, s/replay: "
+                  + ", ".join(f"{lb} {v:.3f}" for lb, v in replay.items())
+                  + f"; the last pass costs {extra:.3f} s a replay")
+    finally:
+        solve.refinement_passes = port_rule
 
 
 def main(argv=None):
@@ -1886,8 +2042,9 @@ def main(argv=None):
     ap.add_argument("--classic-limbs", type=int, nargs="+", metavar="K",
                     help="only hold the classic kernels at these limb counts to their "
                          "plain versions")
-    ap.add_argument("--digits", action="store_true",
-                    help="only the three-word ladder's digits by refinement passes")
+    ap.add_argument("--digits", nargs="*", choices=("640", "400"),
+                    help="only the ladder's digits by refinement passes (at 640 and 400 "
+                         "bits, or those named)")
     args = ap.parse_args(argv)
     if not (ROOT / "sdpb_tpu_torch").is_dir() or not all(
             f.exists() for f in (LADDER, CERTIFICATE, LADDER_PERTURBED, LADDER_PMP,
@@ -1904,21 +2061,24 @@ def main(argv=None):
     from sdpb_tpu_torch.cli import sdpb as cli
     from sdpb_tpu_torch.io import sdp_zip
     from sdpb_tpu_torch.ops import kernels, mpfloat as mp
-    # each CLI call would parse the ladder's decimal strings again (~8 s on
-    # one core); nothing here changes a problem once read
-    sdp_zip.read_sdp = functools.lru_cache(maxsize=None)(sdp_zip.read_sdp)
+    diagnostic = args.classic_limbs or args.digits is not None
+    if diagnostic:
+        sdp_zip.read_sdp = _SdpReads(sdp_zip.read_sdp, ())
+    else:
+        sdp_zip.read_sdp = _SdpReads(sdp_zip.read_sdp, SDP_READS)
+    atexit.register(sdp_zip.read_sdp.close)
 
     t_start = time.time()
     smi = device_phase(torch)
-    if args.classic_limbs or args.digits:
+    if diagnostic:
         if args.classic_limbs:
             classic_limbs_diagnostic(torch, mp, kernels, dev, args.classic_limbs)
-        if args.digits:
-            digits_diagnostic(torch, kernels, cli, dev)
+        if args.digits is not None:
+            digits_diagnostic(torch, kernels, cli, dev, tuple(args.digits) or ("640", "400"))
         print(f"\ndiagnostics: {time.time() - t_start:.1f} s")
         print(smi)
         return 0
-    build_s = build_phase(kernels)
+    build_s, wait_for_k13 = build_phase(kernels)
     exactness_phase(torch, mp, kernels, dev)
     rows = kernel_phase(torch, mp, kernels, dev, scaled=False)
     cert = certificate_phase(torch, kernels, cli, dev, scaled=False)
@@ -1935,6 +2095,8 @@ def main(argv=None):
     checkpoints = checkpoint_phase(torch, mp, kernels, cli, dev,
                                    chunked["wide"]["chunked"]["result"].state, smi)
     tools = tools_phase(torch, mp, kernels, cli, dev, smi)
+    waited = wait_for_k13()
+    print(f"waited {waited:.1f} s for the classic K=13 libraries")
     wide3 = wide3_phase(torch, mp, kernels, cli, dev)
     check("jax" not in sys.modules, "the port imported jax")
     check(not any(m == "sdpb_tpu" or m.startswith("sdpb_tpu.") for m in sys.modules),

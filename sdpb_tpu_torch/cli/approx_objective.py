@@ -87,6 +87,7 @@ def run(argv=None, timings: dict = None) -> list:
     from ..models.sdp import build_device_sdp
     from ..ops.mpfloat import MAX_SCALED_K
     from ..solver.checkpoint import load_text_checkpoint
+    from ..solver.params import refinement_passes
     from ..tools.approx_objective import (approx_objective, duality_gap,
                                           load_reference_solver_state, load_solver_state,
                                           quadratic_precision_warning, save_solver_state,
@@ -111,7 +112,7 @@ def run(argv=None, timings: dict = None) -> list:
     # refinement recovers the rest)
     K_dev = sdp.b.K
     factor_limbs = min(K_dev, MAX_SCALED_K) if scaled_limbs else K
-    n_refine = 1 if not scaled_limbs else max(1, -(-K_dev // factor_limbs))
+    n_refine = max(1, refinement_passes(K_dev, factor_limbs, bool(scaled_limbs)))
 
     frozen = None
     state_path = solution_dir / "solver_state.npz"

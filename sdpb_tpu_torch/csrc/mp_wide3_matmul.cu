@@ -24,16 +24,23 @@
 // kernels.mp_matmul_wide3_plain runs the same ops in the same order, so
 // kernel and plain version agree limb for limb and exponent for exponent.
 //
-// Two kernels per pass over the contraction, on the caller's stream, as
-// the two-word GEMM splits its multiply-add: the products, about 60% of
-// the work, read no accumulator.
-//   1. mp_wide3_term_kernel, one thread per term (b, m, t, n) of tc values
-//      of t (a whole number of chunks): its three-word product into a
-//      global scratch of 3 (4 Kg + 4) bytes a term, laid out
-//      [3, Kg, B, M, tc, N];
-//   2. mp_wide3_acc_kernel, one thread per output (b, m, n): each chunk's
-//      halving tree in place in the scratch, then the chunk sum into the
-//      accumulator, carried across passes in the output (stored exactly).
+// The work is the products (wmul, ~10x a wadd), each as fast as the
+// elementwise product (mp_wide3_ops.cu) where a thread runs one: so each
+// pass over the contraction is three kernels on the caller's stream, each
+// a thread per item and none waiting on another thread:
+//   1. mp_wide3_term_kernel, a thread a term (b, m, t, n) of tc values of t
+//      (a whole number of chunks): its product into a scratch in device
+//      memory of 3 (4 Kg + 4) bytes a term (the wrapper's), [3, Kg, B, M,
+//      tc, N];
+//   2. mp_wide3_tree_kernel, a thread a chunk (b, m, chunk, n): the chunk's
+//      halving tree in place in the scratch;
+//   3. mp_wide3_acc_kernel, a thread an output: the chunk sums added in
+//      order into the accumulator, carried across passes in the output
+//      (stored exactly) -- the one chain the order makes serial.
+// A block that computed a chunk's terms and their trees in shared memory
+// (one launch, no scratch) waited at a barrier for its slowest product and
+// at every level of the tree, and a thread that ran a whole chunk's
+// products held more local memory: both measured slower (PERF.md).
 // No shared memory, no tensor cores, no library.  Built with -DMP_WIDE=1
 // -DMP_SCALED=1.
 #include "mp_wide3.cuh"
@@ -43,7 +50,9 @@ namespace {
 using namespace mpw3;
 constexpr int THREADS = 128;
 
-__global__ void __launch_bounds__(THREADS)
+// Thread (b, m, t, n) of the pass's tc values of t from t0: its term's
+// product into the scratch p, laid out [3, Kg, B, M, tc, N].
+__global__ void __launch_bounds__(THREADS, 4)
 mp_wide3_term_kernel(Words a, Words b, float* __restrict__ p, int* __restrict__ pe, int B,
                      int M, int Kd, int N, int t0, int tc) {
   const long long total = (long long)B * M * tc * N;
@@ -52,13 +61,12 @@ mp_wide3_term_kernel(Words a, Words b, float* __restrict__ p, int* __restrict__ 
   const int j = (int)(gid % N);
   const int t = t0 + (int)((gid / N) % tc);
   const long long bm = gid / ((long long)tc * N);  // bb * M + i
-  const long long bb = bm / M;
   W x, y;
   if (t < Kd) {
     const size_t as = (size_t)B * M * Kd;  // limb strides
     const size_t bs = (size_t)B * Kd * N;
-    const size_t ai = (size_t)bm * Kd + t;            // element (bb, i, t)
-    const size_t bi = ((size_t)bb * Kd + t) * N + j;  // element (bb, t, j)
+    const size_t ai = (size_t)bm * Kd + t;                  // element (bb, i, t)
+    const size_t bi = ((size_t)(bm / M) * Kd + t) * N + j;  // element (bb, t, j)
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       x.w[g] = mps::load<K>(a.x[g], a.e[g], as, ai);
@@ -68,52 +76,63 @@ mp_wide3_term_kernel(Words a, Words b, float* __restrict__ p, int* __restrict__ 
 #pragma unroll
     for (int g = 0; g < G; ++g) x.w[g] = y.w[g] = mps::zero<K>();
   }
-  float S[ROWS3];
-  int D[K * K];
-  store_w(p, pe, (size_t)total, (size_t)total, (size_t)gid, wmul(x, y, S, D));
+  float T[SCRATCH];
+  store_w(p, pe, (size_t)total, (size_t)total, (size_t)gid, wmul(x, y, T));
 }
 
+// Thread (b, m, chunk, n): the chunk's halving tree, in place in the
+// scratch, its sum left at the chunk's first term.
 __global__ void __launch_bounds__(THREADS)
-mp_wide3_acc_kernel(float* __restrict__ p, int* __restrict__ pe, OutWords o, int B, int M,
-                    int N, int c, int tc, int first, int single) {
-  const long long total = (long long)B * M * N;
+mp_wide3_tree_kernel(float* __restrict__ p, int* __restrict__ pe, int B, int M, int N, int c,
+                     int tc) {
+  const int per = tc / c;  // chunks of the pass
+  const long long chunks = (long long)B * M * per * N;
   const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= total) return;
+  if (gid >= chunks) return;
+  const int j = (int)(gid % N);
+  const int q = (int)((gid / N) % per);
+  const long long bm = gid / ((long long)per * N);
+  const size_t ts = (size_t)B * M * tc * N;  // the scratch's terms
+  const size_t base = ((size_t)bm * tc + (size_t)q * c) * N + j;  // term (bb, i, q c, j)
+  auto term = [&](int i) { return base + (size_t)i * N; };
+#pragma unroll 1
+  for (int n = c; n > 1; n = n / 2 + (n & 1)) {
+    const int half = n / 2;
+#pragma unroll 1
+    for (int i = 0; i < half; ++i)
+      store_w(p, pe, ts, ts, term(i),
+              wadd(load_w(p, pe, ts, ts, term(i)), load_w(p, pe, ts, ts, term(half + i))));
+    if (n & 1) store_w(p, pe, ts, ts, term(half), load_w(p, pe, ts, ts, term(n - 1)));
+  }
+}
+
+// Thread (b, m, n): the pass's chunk sums added in order into the
+// accumulator (zero at the first pass, else the output; a single chunk is
+// the result).
+__global__ void __launch_bounds__(THREADS)
+mp_wide3_acc_kernel(const float* __restrict__ p, const int* __restrict__ pe, OutWords o, int B,
+                    int M, int N, int c, int tc, int first, int single) {
+  const long long outs = (long long)B * M * N;
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= outs) return;
   const int j = (int)(gid % N);
   const long long bm = gid / N;  // bb * M + i
-  const size_t ts = (size_t)total * tc;      // the scratch's terms
-  const size_t base = (size_t)bm * tc * N + j;  // term (bb, i, 0, j) of the pass
-  auto term = [&](int tt) { return base + (size_t)tt * N; };
-
+  const size_t ts = (size_t)outs * tc;
   W acc;
   if (first) {
 #pragma unroll
     for (int g = 0; g < G; ++g) acc.w[g] = mps::zero<K>();
   } else {
 #pragma unroll
-    for (int g = 0; g < G; ++g)
-      acc.w[g] = mps::load<K>(o.x[g], o.e[g], (size_t)total, (size_t)gid);
+    for (int g = 0; g < G; ++g) acc.w[g] = mps::load<K>(o.x[g], o.e[g], (size_t)outs, (size_t)gid);
   }
 #pragma unroll 1
   for (int q = 0; q < tc; q += c) {
-    // the chunk's halving tree, in place: level sums at the chunk's front
-#pragma unroll 1
-    for (int n = c; n > 1; n = n / 2 + (n & 1)) {
-      const int half = n / 2;
-#pragma unroll 1
-      for (int i = 0; i < half; ++i) {
-        const W s = wadd(load_w(p, pe, ts, ts, term(q + i)),
-                         load_w(p, pe, ts, ts, term(q + half + i)));
-        store_w(p, pe, ts, ts, term(q + i), s);
-      }
-      if (n & 1)
-        store_w(p, pe, ts, ts, term(q + half), load_w(p, pe, ts, ts, term(q + n - 1)));
-    }
-    const W s = load_w(p, pe, ts, ts, term(q));
+    const W s = load_w(p, pe, ts, ts, ((size_t)bm * tc + q) * N + j);
     acc = single ? s : wadd(acc, s);
   }
 #pragma unroll
-  for (int g = 0; g < G; ++g) mps::store<K>(o.x[g], o.e[g], (size_t)total, (size_t)gid, acc.w[g]);
+  for (int g = 0; g < G; ++g) mps::store<K>(o.x[g], o.e[g], (size_t)outs, (size_t)gid, acc.w[g]);
 }
 
 }  // namespace
@@ -140,15 +159,21 @@ extern "C" int mp_wide3_matmul_launch(const void* a0, const void* a0e, const voi
   cudaStream_t st = (cudaStream_t)stream;
   const int nch = (Kd + c - 1) / c;
   const int padded = nch * c;
+  auto blocks = [](long long n) { return (unsigned)((n + THREADS - 1) / THREADS); };
   for (int t0 = 0; t0 < padded; t0 += tc) {
     const int cur = tc < padded - t0 ? tc : padded - t0;
-    const long long terms = outs * cur;
-    mp_wide3_term_kernel<<<(unsigned)((terms + THREADS - 1) / THREADS), THREADS, 0, st>>>(
-        a, b, (float*)p, (int*)pe, B, M, Kd, N, t0, cur);
+    mp_wide3_term_kernel<<<blocks(outs * cur), THREADS, 0, st>>>(a, b, (float*)p, (int*)pe, B, M,
+                                                                 Kd, N, t0, cur);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    mp_wide3_acc_kernel<<<(unsigned)((outs + THREADS - 1) / THREADS), THREADS, 0, st>>>(
-        (float*)p, (int*)pe, o, B, M, N, c, cur, t0 == 0, nch == 1);
+    if (c > 1) {
+      mp_wide3_tree_kernel<<<blocks(outs * (cur / c)), THREADS, 0, st>>>((float*)p, (int*)pe, B,
+                                                                         M, N, c, cur);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    mp_wide3_acc_kernel<<<blocks(outs), THREADS, 0, st>>>((const float*)p, (const int*)pe, o, B,
+                                                          M, N, c, cur, t0 == 0, nch == 1);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -11,7 +11,10 @@
 // wadd or wmul; kernels.mp_wide3_add / mp_wide3_mul broadcast and lay out
 // the operands, and on the CPU run the plain versions
 // (ops/mpwide_kernel.py's wadd_g_c, wmul_g_c), with which these agree limb
-// for limb and exponent for exponent.  Built with -DMP_WIDE=1
+// for limb and exponent for exponent.  A product is bound by its thread's
+// latency through the word products' TwoSum sweeps, which mp_wide3.cuh runs
+// as a skewed wavefront (K independent TwoSums a step); a sum by its word
+// TwoSums, whose stacks are registers.  Built with -DMP_WIDE=1
 // -DMP_SCALED=1.
 #include "mp_wide3.cuh"
 
@@ -40,14 +43,16 @@ mp_wide3_add_kernel(Words a, Words b, OutWords o, long long n) {
                                        load3(b, (size_t)n, (size_t)i)));
 }
 
-__global__ void __launch_bounds__(THREADS)
+// The product: a thread an element, its scratch in local memory (the
+// SM's L1 and L2; held in shared memory it left room for four warps an SM,
+// which measured slower than sixteen warps over L1 and L2).
+__global__ void __launch_bounds__(THREADS, 4)
 mp_wide3_mul_kernel(Words a, Words b, OutWords o, long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  float S[ROWS3];
-  int D[K * K];
+  float T[SCRATCH];
   store3(o, (size_t)n, (size_t)i, wmul(load3(a, (size_t)n, (size_t)i),
-                                       load3(b, (size_t)n, (size_t)i), S, D));
+                                       load3(b, (size_t)n, (size_t)i), T));
 }
 
 }  // namespace

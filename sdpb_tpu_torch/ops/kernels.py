@@ -584,7 +584,7 @@ def _matmul_wide3(a4: MPW, b4: MPW) -> MPW:
     if out[0].limbs.numel():
         c, _, tc = wide3_plan(B, M, Kd, N, a4.K, WIDE3_TERMS)
         # the products of one pass's terms, written by the kernel's first
-        # pass and summed in place by its second
+        # launch, summed in place by its second and read by its third
         terms = B * M * tc * N
         scratch = (torch.empty((3, Kg, terms), dtype=mp.SCALED_DTYPE, device=a4.device),
                    torch.empty((3, terms), dtype=torch.int32, device=a4.device))

@@ -37,6 +37,7 @@ def _time_iterations(sdp, params, n_timed: int = 2) -> float:
     cap.  The runner is closed before the next candidate's is built, so
     two graph pools never coexist."""
     from ..solver.graphs import ChunkRunner
+    from ..solver.params import refinement_passes
     from ..solver.solve import initial_factor_limbs
     from ..solver.state import initial_state
     from ..solver.step import CARRY_START, StepConfig
@@ -53,7 +54,7 @@ def _time_iterations(sdp, params, n_timed: int = 2) -> float:
     factor_limbs = min(factor_cap, max(2, (K + 2) // 2))
     cfg = StepConfig(
         total_psd_rows=sdp.total_psd_rows, factor_limbs=factor_limbs,
-        n_refine=0 if K <= factor_limbs else -(-K // factor_limbs),
+        n_refine=refinement_passes(K, factor_limbs, scaled),
         gamma=float(mpmath.mpf(params.step_length_reduction)),
         feasible_beta_limbs=parse(params.feasible_centering_parameter),
         infeasible_beta_limbs=parse(params.infeasible_centering_parameter),

@@ -43,3 +43,28 @@ class SolverParameters:
 
     def to_dict(self):
         return asdict(self)
+
+
+# Bits that a scaled (float32-limb) Cholesky factor carries, whatever its
+# limb count above 7: the scaled product drops a limb ~190 bits below its
+# leading one, so rsqrt's Newton steps, and the factor built on them, stall
+# near 2^-188 at Kf = 8 and 9 alike
+# (tests/test_torch_kernels.py::test_scaled_rsqrt_and_factor_stall_near_2_pow_minus_188).
+SCALED_FACTOR_BITS = 188
+
+
+def refinement_passes(K: int, factor_limbs: int, scaled: bool) -> int:
+    """Refinement passes of a mixed-precision solve that factors at
+    `factor_limbs` and solves at K limbs: none where the factor has every
+    limb, else the working bits over the bits the factor really carries,
+    rounded up.  A classic factor carries 53 bits a limb, which gives the
+    JAX package's ceil(K / Kf); a scaled one (one word, two or three words)
+    24 a limb but at most SCALED_FACTOR_BITS, so that a wide 2 x 9 run at
+    400 bits takes 3 passes and three words of 9 at 640 bits take 4, where
+    ceil(K / Kf) gives 2 and 3 and leaves the solves short of the
+    precision."""
+    if K <= factor_limbs:
+        return 0
+    if not scaled:
+        return -(-K // factor_limbs)
+    return -(-(24 * K) // min(24 * factor_limbs, SCALED_FACTOR_BITS))

@@ -29,7 +29,7 @@ from ..ops import mpfloat as mp
 from ..utils.strings import (limbs_to_mpf, scaled_limbs_to_mpf, str_to_limbs,
                              str_to_scaled_limbs, wide_limbs_to_mpf)
 from ..utils.timers import Timers
-from .params import SolverParameters
+from .params import SolverParameters, refinement_passes
 from .state import SolverState, initial_state
 from .step import (CARRY_START, MP_FIELDS, REASON_NONE, REASON_RETRY, IterationStats,
                    StatsLayout, StepConfig, make_iteration, pack_stats, stats_layout)
@@ -207,7 +207,7 @@ def run_solver(sdp: DeviceSDP, params: SolverParameters, verbosity: int = 1,
             kkt_heal=kf < factor_cap,
             total_psd_rows=sdp.total_psd_rows,
             factor_limbs=kf,
-            n_refine=0 if K <= kf else -(-K // kf),
+            n_refine=refinement_passes(K, kf, scaled),
             gamma=float(mpmath.mpf(params.step_length_reduction)),
             feasible_beta_limbs=parse(params.feasible_centering_parameter),
             infeasible_beta_limbs=parse(params.infeasible_centering_parameter),

@@ -6,11 +6,14 @@
 Run it as a file (not with -m), on a CUDA card.  `--root` names the
 checkout whose `sdpb_tpu_torch` (sources and wrappers) is measured; the
 default is the one holding this script.  For classic K = 4, 5 and scaled
-K = 8, 9 (the ladder's factor and GEMM limbs) it reports:
+K = 8, 9 (the ladder's factor and GEMM limbs), and for the three-word
+kernels at Kg = 9 (--precision 640), it reports:
   * ptxas: registers, stack frame, spill stores and loads of every kernel
-    of `kernels.SOURCES` (nvcc -Xptxas -v, the kernels' own flags);
-  * SASS: instructions of each kernel, and local-memory loads and stores
-    (cuobjdump -sass of the built libraries);
+    of `kernels.SOURCES` and `kernels.WIDE3_SOURCES` (nvcc -Xptxas -v, the
+    kernels' own flags), and of the three-word kernels' outlined word
+    operations (stack frame and spills);
+  * SASS: instructions of each of those kernels and outlined functions, and
+    local-memory loads and stores (cuobjdump -sass of the built libraries);
   * the latency of one MP product, add and rsqrt as a single thread runs
     them back to back (tools/mp_chain_probe.cu over the checkout's
     csrc/mp.cuh), in clock cycles and per SASS instruction: inlined, the
@@ -39,6 +42,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[2]
 PROBE = Path(__file__).resolve().parent / "mp_chain_probe.cu"
 BUILDS = ((False, 4), (False, 5), (True, 8), (True, 9))
+# the three-word libraries reported (ptxas and SASS only)
+WIDE3_BUILDS = (9,)
 # (op of mp_chain_probe.cu, name, steps a thread, products a step)
 CHAINS = ((0, "mul", 256, 1), (1, "add", 1024, 1), (2, "rsqrt", 32, 1), (3, "mul x4", 64, 4),
           (4, "outlined mul", 256, 1), (5, "outlined add", 1024, 1), (6, "outlined rsqrt", 32, 1),
@@ -46,11 +51,22 @@ CHAINS = ((0, "mul", 256, 1), (1, "add", 1024, 1), (2, "rsqrt", 32, 1), (3, "mul
 # (part of a mangled name, label): the kernels, and the outlined operations
 FUNCTIONS = (("chain_kernel", "chain_kernel"), ("mp_matmul_kernel", "mp_matmul_kernel"),
              ("mp_cholesky_kernel", "mp_cholesky_kernel"), ("mp_trsm_kernel", "mp_trsm_kernel"),
-             ("3mpo3mul", "mpo::mul"), ("3mpo3add", "mpo::add"))
+             ("3mpo3mul", "mpo::mul"), ("3mpo3add", "mpo::add"),
+             ("mp_wide3_term_kernel", "mp_wide3_term_kernel"),
+             ("mp_wide3_tree_kernel", "mp_wide3_tree_kernel"),
+             ("mp_wide3_acc_kernel", "mp_wide3_acc_kernel"),
+             ("mp_wide3_mul_kernel", "mp_wide3_mul_kernel"),
+             ("mp_wide3_add_kernel", "mp_wide3_add_kernel"),
+             ("mul_full3_o", "mpw3::mul_full3_o"), ("mul_full_o", "mpw3::mul_full_o"),
+             ("mul_st_o", "mpw3::mul_st_o"), ("two_sum_o", "mpw3::two_sum_o"),
+             ("add_st_o", "mpw3::add_st_o"), ("sweeps_lift_o", "mpw3::sweeps_lift_o"),
+             ("finish_o", "mpw3::finish_o"))
 INSTR = re.compile(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
 
 
 def _tag(scaled, K):
+    if scaled == "wide3":
+        return f"three words Kg={K}"
     return f"{'scaled' if scaled else 'classic'} K={K}"
 
 
@@ -85,12 +101,16 @@ def _ptxas_info(text):
 
 
 def _sass_counts(text):
-    """{kernel: {instructions, local_loads, local_stores, top opcodes}}."""
+    """{kernel: {instructions, local_loads, local_stores, top opcodes}}; a
+    function compiled into several objects of a library (an outlined
+    operation of a header) is counted in its first copy."""
     funcs, name, ops = {}, None, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = _function(m.group(1))
+            if name in funcs:
+                name = None
             if name:
                 ops = funcs.setdefault(name, {})
             continue
@@ -141,18 +161,30 @@ def main(argv=None) -> int:
                 cmd += ["-I", str(kernels.CSRC), "-shared", str(PROBE), "-o",
                         str(tmp / f"probe_k{K}{int(scaled)}.so")]
             else:
-                cmd += ["-c", str(kernels.CSRC / src), "-o", str(tmp / f"{src}.{K}{int(scaled)}.o")]
+                cmd += ["-c", str(kernels.CSRC / src), "-o",
+                        str(tmp / f"{src}.{K}{kernels._tag(scaled)}.o")]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode:
                 raise RuntimeError(f"{' '.join(cmd)}:\n{proc.stdout}{proc.stderr}")
             return job, _ptxas_info(proc.stdout + proc.stderr)
 
         jobs = [(src, s, K) for src in (*kernels.SOURCES, "probe") for s, K in BUILDS]
+        jobs += [(src, kernels.WIDE3, K) for src in kernels.WIDE3_SOURCES for K in WIDE3_BUILDS]
         with ThreadPoolExecutor(len(jobs)) as pool:
             for (src, s, K), info in pool.map(compile_one, jobs):
                 report["ptxas"].setdefault(_tag(s, K), {}).update(info)
-        kernels.build([4, 5, 8, 9], [False, True], [], probe=False)
+        kernels.build([4, 5, 8, 9], [False, True], [], probe=False, wide3_Ks=WIDE3_BUILDS)
         print(f"compiled in {time.time() - t0:.1f} s", flush=True)
+        for K in WIDE3_BUILDS:
+            tag = _tag(kernels.WIDE3, K)
+            sass = subprocess.run([cuobjdump, "-sass", str(kernels.library_path(K, kernels.WIDE3))],
+                                  capture_output=True, text=True, check=True).stdout
+            with gzip.open(outdir / f"sass_wide3_k{K}.txt.gz", "wt") as f:
+                f.write(sass)
+            report["sass"][tag] = _sass_counts(sass)
+            for name, info in sorted(report["ptxas"][tag].items()):
+                print(f"{tag} {name}: ptxas {info}; SASS {report['sass'][tag].get(name)}",
+                      flush=True)
         for s, K in BUILDS:
             tag = _tag(s, K)
             for what, lib in (("kernels", kernels.library_path(K, s)),

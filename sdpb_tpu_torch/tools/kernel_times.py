@@ -1,6 +1,6 @@
 """Device time per ladder iteration of the GEMMs, the factor and the triangular solve of a checkout.
 
-    python3 sdpb_tpu_torch/tools/kernel_times.py [--root DIR]
+    python3 sdpb_tpu_torch/tools/kernel_times.py [--root DIR] [--labels LABEL ...]
 
 Run it as a file (not with -m), on a CUDA card.  `--root` names the
 checkout whose `sdpb_tpu_torch` is imported and timed (default: the one
@@ -8,8 +8,10 @@ holding this script); run it for two checkouts in turns (parent, change,
 change, parent), each in its own process, to compare their kernels on one
 card.  The shapes come from the solver: one CLI run of the 120-block ising
 ladder per representation (classic 216 bits, scaled 208 bits, wide 400
-bits; two iterations each) with the wrapper calls tallied by shape, as in
-chip_smoke.py's phases 6, 9 and 11; each tallied shape is then timed as
+bits, three words at 640 bits; two iterations each) with the wrapper
+calls tallied by shape, as in chip_smoke.py's phases 6, 9, 11 and 17 (at
+three words the GEMM, the elementwise sum and the product); each tallied
+shape is then timed as
 those phases do (chip_smoke.iteration_kernel_ms, from the chip_smoke.py
 at the root of the checkout holding this script, for both checkouts) but
 with chip_smoke._queued_ms: CUDA events around 10 calls queued behind a
@@ -19,7 +21,9 @@ Then the factor alone over the batch, B = 1 and 120 at n = 20 and 57
 from 1 to 120: one block a batch element, so a time that hardly moves
 with B is the pivot chain's.  The last line is one JSON object: the card,
 ms per iteration by launch counter for each representation, and the
-factor's ms by batch.
+factor's ms by batch.  `--labels` picks the representations (classic,
+scaled, wide, wide3; default all); the factor sweep runs with classic or
+scaled.
 """
 import argparse
 import contextlib
@@ -31,6 +35,7 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[2]
+LABELS = ("classic", "scaled", "wide", "wide3")
 # (scaled, Kf, n, batches) of the factor's batch sweep
 FACTOR_SWEEP = ((False, 4, 20, (1, 120)), (False, 4, 57, (1, 120)),
                 (True, 8, 20, (1, 120)), (True, 8, 57, (1, 16, 33, 66, 100, 120)),
@@ -40,6 +45,7 @@ FACTOR_SWEEP = ((False, 4, 20, (1, 120)), (False, 4, 57, (1, 120)),
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--root", default=str(HERE))
+    p.add_argument("--labels", nargs="+", default=LABELS, choices=LABELS)
     args = p.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -60,20 +66,22 @@ def main(argv=None) -> int:
     print(f"checkout {root}; card {card}", flush=True)
     t0 = time.time()
     # the ladder's limbs: classic K=5 (factor 4), scaled K32=9 (factor 8),
-    # wide Kg=9 (factor 9 on word 0)
-    kernels.build([4, 5, 8, 9], [False, True], [9], probe=False)
+    # wide Kg=9 (factor 9 on word 0), three words Kg=9 (factor 9)
+    kernels.build([4, 5, 8, 9], [False, True], [9], probe=False, wide3_Ks=[9])
     print(f"build {time.time() - t0:.1f} s", flush=True)
     out = {}
-    for label in ("classic", "scaled", "wide"):
+    precs = dict(cs.LADDER_PREC, wide3=cs.WIDE3_PREC)
+    for label in args.labels:
         with contextlib.redirect_stdout(io.StringIO()):
-            run = cs._ladder_run(torch, kernels, cli, dev, list(cs.LADDER_PREC[label]), 1,
+            run = cs._ladder_run(torch, kernels, cli, dev, list(precs[label]), 1,
                                  cs.kernel_path(kernels, label))
         print(f"{label}:", flush=True)
         out[label] = cs.iteration_kernel_ms(torch, mp, kernels, dev, run["tally"],
                                             run["iterations"], cs._queued_ms)
     factor = {}
     rng = np.random.default_rng(11)
-    for scaled, K, n, batches in FACTOR_SWEEP:
+    sweep = FACTOR_SWEEP if {"classic", "scaled"} & set(args.labels) else ()
+    for scaled, K, n, batches in sweep:
         for B in batches:
             limbs = cs._limbs(rng, (B, n, n), -(-(24 * K) // 53) + 1 if scaled else K,
                               spd=True, decades=3.0 if scaled else 0.0)

@@ -174,6 +174,7 @@ def profile_fixture(fixture: str, scaled_limbs: int, quant: int, omega: str,
     from ..models.sdp import build_device_sdp
     from ..ops import linalg
     from ..ops import mpfloat as mp
+    from ..solver.params import refinement_passes
     from ..solver.state import initial_state
     from ..solver.step import (StepConfig, _compute_pairings, _psd_pair,
                                _schur_complement, _step_length_lambda,
@@ -203,8 +204,8 @@ def profile_fixture(fixture: str, scaled_limbs: int, quant: int, omega: str,
     Kf = min(K, max(2, (K + 2) // 2, -(-int(2 * log2_om + 30) // p_bits)))
     if scaled_limbs:
         Kf = min(Kf, mp.MAX_SCALED_K)
-    n_refine = 0 if K <= Kf else -(-K // Kf)
     sc = bool(scaled_limbs)
+    n_refine = refinement_passes(K, Kf, sc)
 
     cfg = StepConfig(
         total_psd_rows=sdp.total_psd_rows, factor_limbs=Kf,

@@ -770,15 +770,18 @@ def three_words(monkeypatch):
     monkeypatch.setattr(tmw, "wide_config", lambda K: (3, -(-K // 3)))
 
 
-@pytest.mark.parametrize("Kd", [1, 5, 20, 57])
-@pytest.mark.parametrize("Kg", [3, 7, 9])
+@pytest.mark.parametrize("Kd", [1, 3, 5, 8, 20, 40, 57])
+@pytest.mark.parametrize("Kg", [3, 7, 8, 9])
 def test_wide3_kernel_matches_plain_version(cuda, three_words, Kg, Kd, monkeypatch):
     """The three-word GEMM bit for bit with its plain version on the card
-    and on the CPU at M, N in {1, 15} and a broadcast batch, the chunk of
-    the word size (39, 7, 4: Kd = 57 padded) and, at Kg = 3, a chunk of 4
-    in passes of one chunk each."""
+    and on the CPU at M, N in {1, 15} and a broadcast batch, and at B = 1
+    with 35 outputs (a ragged last block of the kernel's 32); the chunk of
+    the word size (39, 7, 5, 4 at Kg = 3, 7, 8, 9: Kd = 57 padded; Kd =
+    chunk + 1 at 5, 8 and 40, one unpadded chunk at Kd = 3 and, at Kg = 8,
+    at Kd = 5) and, at Kg = 3, a chunk of 4 in the plain
+    version's passes of one chunk each."""
     rng = np.random.default_rng(700 + 10 * Kg + Kd)
-    for M, N, B in ((1, 15, 2), (15, 1, 3)):
+    for M, N, B in ((1, 15, 2), (15, 1, 3), (5, 7, 1)):
         a, b = _wide3(rng, (B, M, Kd), Kg), _wide3(rng, (1, Kd, N), Kg)
         tk.reset_launches()
         out = tk.mp_matmul_wide(_on(a, cuda), _on(b, cuda))
@@ -797,17 +800,19 @@ def test_wide3_kernel_matches_plain_version(cuda, three_words, Kg, Kd, monkeypat
 @pytest.mark.parametrize("Kg", [3, 7, 8, 9])
 def test_wide3_elementwise_kernels_match_plain_versions(cuda, three_words, Kg):
     """The three-word sum and product: one launch each, bit for bit with
-    the plain versions on the card and on the CPU, broadcast shapes; the
+    the plain versions on the card and on the CPU, 129 elements (one more
+    than a block) and broadcast shapes; the
     Newton ops over them (division, sqrt) the same on card and CPU."""
     rng = np.random.default_rng(800 + Kg)
-    a, b = _wide3(rng, (4, 5), Kg), _wide3(rng, (5,), Kg)
-    A, Bv = _on(a, cuda), _on(b, cuda)
-    for op, plain, name in ((tk.mp_wide3_add, tk.mp_wide3_add_plain, "mp_wide3_add"),
-                            (tk.mp_wide3_mul, tk.mp_wide3_mul_plain, "mp_wide3_mul")):
-        tk.reset_launches()
-        out = op(A, Bv)
-        assert tk.LAUNCHES[name] == 1
-        assert _same_wide(out, plain(A, Bv)) and _same_wide(out, op(a, b))
+    for ash, bsh in (((129,), (129,)), ((4, 5), (5,))):
+        a, b = _wide3(rng, ash, Kg), _wide3(rng, bsh, Kg)
+        A, Bv = _on(a, cuda), _on(b, cuda)
+        for op, plain, name in ((tk.mp_wide3_add, tk.mp_wide3_add_plain, "mp_wide3_add"),
+                                (tk.mp_wide3_mul, tk.mp_wide3_mul_plain, "mp_wide3_mul")):
+            tk.reset_launches()
+            out = op(A, Bv)
+            assert tk.LAUNCHES[name] == 1
+            assert _same_wide(out, plain(A, Bv)) and _same_wide(out, op(a, b))
     pos = tmp.abs_(b)
     assert _same_wide(tmp.div(A, _on(pos, cuda)), tmp.div(a, pos))
     assert _same_wide(tmp.sqrt(_on(pos, cuda)), tmp.sqrt(pos))

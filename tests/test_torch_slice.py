@@ -1,8 +1,9 @@
-"""The port's sdpb slice (problem staging, one interior-point iteration, the
-host run loop, the CLI) against the JAX package on the CPU.
+"""The port's sdpb slice (one interior-point iteration, the host run loop,
+the CLI) against the JAX package on the CPU; its problem staging and
+initial state are held equal to the JAX package's in test_torch_build.py,
+with this file's bucket comparisons.
 
 Tolerances:
-  * build_device_sdp: bucket shapes, masks and limbs equal.
   * one iteration from the same problem and state (carried across with
     sdpb_tpu_torch.interop): the MP statistics computed before the step
     (objectives, gap, mu) within 2^-(53K-20) relative; the error norms,
@@ -13,11 +14,10 @@ Tolerances:
   * five free-running iterations through each package's host loop: every
     IterationStats field within 1e-8 relative, the same terminate reason.
   * the CLI's out.txt: objectives within 1e-8 relative of the JAX run's.
-  * the scaled representation (float32 limbs, int32 exponents): staging
-    and the initial state equal to the JAX package's, limbs and
-    exponents.  The JAX package's scaled iteration takes minutes to
-    compile for the CPU, so one scaled iteration (K32 = 3, 72 bits) is
-    run from the JAX classic state rounded into scaled parts and held to
+  * the scaled representation (float32 limbs, int32 exponents): the JAX
+    package's scaled iteration takes minutes to compile for the CPU, so
+    one scaled iteration (K32 = 3, 72 bits) is run from the JAX classic
+    state rounded into scaled parts and held to
     the JAX classic iteration from that state: MP statistics within
     2^-(24K-24) relative, step lengths and the next state within 1e-12
     relative (both packages take the steps from float64 matrices, which
@@ -25,10 +25,9 @@ Tolerances:
     norms (float32 in the scaled run) within 2^-20 relative; and the
     scaled CLI's out.txt after 3 iterations within 1e-12 relative of the
     JAX classic run's objectives.
-  * the wide representation (two scaled words): staging and the initial
-    state equal to the JAX package's word for word, at K32 = 10 and 17.
-    One wide iteration (two words of Kg = 3 limbs, 144 bits, through a
-    widened wide_config; the JAX wide iteration compiles for far too long
+  * the wide representation (two scaled words): one wide iteration (two
+    words of Kg = 3 limbs, 144 bits, through a widened wide_config; the
+    JAX wide iteration compiles for far too long
     on the CPU) from the JAX classic state rounded into wide parts, held to
     the JAX classic iteration (159 bits): MP statistics within
     2^-(PREC-24) relative, step lengths and the next state within 1e-12
@@ -202,22 +201,6 @@ def _assert_buckets_equal(port, ref):
             assert a.shape == b.shape and np.array_equal(a, b), f
 
 
-@pytest.mark.parametrize("dim", [1, 2])
-def test_build_device_sdp_random_matches(dim):
-    host = random_sdp(num_blocks=5, dim=dim, num_points=5, dual_dim=3, K=3, seed=dim)
-    _assert_buckets_equal(tsdp.build_device_sdp(host, "cpu"),
-                          jsdp.build_device_sdp(host))
-
-
-def test_build_device_sdp_ladder_matches():
-    host = read_sdp(LADDER, 2, np.float64)
-    port = tsdp.build_device_sdp(host, "cpu")
-    _assert_buckets_equal(port, jsdp.build_device_sdp(host))
-    bk = port.buckets[0]
-    assert bk.batch == 120 and bk.Bmat.shape == (120, 57, 15)
-    assert bk.emb_even.shape == (120, 20, 38) and bk.emb_odd.shape == (120, 18, 38)
-
-
 def _assert_scaled_buckets_equal(port, ref):
     """Layout, masks, limbs and exponents equal."""
     assert len(port.buckets) == len(ref.buckets)
@@ -233,38 +216,6 @@ def _assert_scaled_buckets_equal(port, ref):
             assert a.dtype == b.dtype == np.float32 and np.array_equal(a, b), f
 
 
-@pytest.mark.parametrize("source,K32", [("random", 3), ("ladder", 9)])
-def test_build_device_sdp_scaled_matches(source, K32):
-    K64 = -(-(24 * K32) // 53) + 1
-    if source == "random":
-        host = random_sdp(num_blocks=5, dim=2, num_points=5, dual_dim=3, K=K64, seed=4)
-    else:
-        host = read_sdp(LADDER, K64, np.float64)
-    port = tsdp.build_device_sdp(host, "cpu", scaled_limbs=K32)
-    _assert_scaled_buckets_equal(port, jsdp.build_device_sdp(host, scaled_limbs=K32))
-    assert port.b.exp.dtype == torch.int32 and port.b.limbs.dtype == torch.float32
-    with pytest.raises(ValueError, match="host limbs"):
-        tsdp.build_device_sdp(read_sdp(LADDER, 2, np.float64), "cpu", scaled_limbs=9)
-
-
-@pytest.mark.parametrize("K32", [3, 7])
-def test_initial_state_scaled_matches(K32):
-    """X = Omega_p I and Y = Omega_d I with Omega's own exponent; padded
-    diagonals at 1.0 on the CENTER(K) ladder; zeros at EXP_ZERO."""
-    K64 = -(-(24 * K32) // 53) + 1
-    host = random_sdp(num_blocks=5, dim=2, num_points=5, dual_dim=3, K=K64, seed=4)
-    jsd = jsdp.build_device_sdp(host, pad_to=8, scaled_limbs=K32)
-    tsd = interop.device_sdp_from_numpy(jax.tree.map(np.asarray, jsd), "cpu")
-    assert any(float(bk.psd_mask_even.min()) == 0.0 for bk in tsd.buckets)
-    om_p, om_d = str_to_scaled_limbs("1e20", K32), str_to_scaled_limbs("3.5e-7", K32)
-    ref = jax.tree.map(np.asarray, jstate.initial_state(jsd, om_p, om_d))
-    mine = tstate.initial_state(tsd, om_p, om_d)
-    assert same_scaled(mine.y, ref.y)
-    for mb, rb in zip(mine.buckets, ref.buckets):
-        for f in ("x", "X_even", "X_odd", "Y_even", "Y_odd"):
-            assert same_scaled(getattr(mb, f), getattr(rb, f)), f
-
-
 def _assert_wide_buckets_equal(port, ref):
     """Layout, masks, and every word's limbs and exponents equal."""
     assert len(port.buckets) == len(ref.buckets)
@@ -277,39 +228,6 @@ def _assert_wide_buckets_equal(port, ref):
         for f in ("mask", "row_mask", "psd_mask_even", "psd_mask_odd"):
             a, b = getattr(pb, f).numpy(), np.asarray(getattr(rb, f))
             assert a.dtype == b.dtype == np.float32 and np.array_equal(a, b), f
-
-
-@pytest.mark.parametrize("source,K32", [("random", 10), ("ladder", 17)])
-def test_build_device_sdp_wide_matches(source, K32):
-    K64 = -(-(24 * K32) // 53) + 1
-    if source == "random":
-        host = random_sdp(num_blocks=5, dim=2, num_points=5, dual_dim=3, K=K64, seed=4)
-    else:
-        host = read_sdp(LADDER, K64, np.float64)
-    port = tsdp.build_device_sdp(host, "cpu", scaled_limbs=K32)
-    _assert_wide_buckets_equal(port, jsdp.build_device_sdp(host, scaled_limbs=K32))
-    assert (port.b.Kg, port.b.K) == ((5, 10) if K32 == 10 else (9, 18))
-
-
-@pytest.mark.parametrize("K32", [10, 17])
-def test_initial_state_wide_matches(K32):
-    """Word 0: Omega's top word on the real diagonal and 1.0 on the padded
-    one; word 1: Omega's remaining mantissa on the real diagonal; zeros at
-    EXP_ZERO."""
-    K64 = -(-(24 * K32) // 53) + 1
-    host = random_sdp(num_blocks=5, dim=2, num_points=5, dual_dim=3, K=K64, seed=4)
-    jsd = jsdp.build_device_sdp(host, pad_to=8, scaled_limbs=K32)
-    tsd = interop.device_sdp_from_numpy(jax.tree.map(np.asarray, jsd), "cpu")
-    assert any(float(bk.psd_mask_even.min()) == 0.0 for bk in tsd.buckets)
-    om_p = str_to_scaled_limbs("1e20", K32)
-    om_d = str_to_scaled_limbs("0.3333333333333333333333333333333333333333333333333", K32)
-    assert isinstance(om_d, list) and om_d[1][0][0] != 0
-    ref = jax.tree.map(np.asarray, jstate.initial_state(jsd, om_p, om_d))
-    mine = tstate.initial_state(tsd, om_p, om_d)
-    assert same_wide(mine.y, ref.y)
-    for mb, rb in zip(mine.buckets, ref.buckets):
-        for f in ("x", "X_even", "X_odd", "Y_even", "Y_odd"):
-            assert same_wide(getattr(mb, f), getattr(rb, f)), f
 
 
 def test_one_wide_iteration_from_jax_classic_state(monkeypatch):

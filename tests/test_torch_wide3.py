@@ -196,7 +196,9 @@ def test_plain_gemm_tally_counts_the_work_the_product_needs(three, monkeypatch):
 def test_refined_solve_reaches_three_words(kind):
     """linalg.PosdefSolver at 3 x 9 (the factor on word 0 at 9 limbs, ~188
     bits): each refinement pass gains about the factor's bits, and three
-    passes (the solver's ceil(27 / 9)) reach the 648 bits, on the
+    passes reach the 648 bits on these well-conditioned matrices (the
+    solver takes four, solver/params.py::refinement_passes: an iteration's
+    matrices cost a pass some of the factor's bits), on the
     iteration's first matrix, 100 I (its residual cancels to a lower word:
     a renormalization without the closing bottom-up pass left word 0 zero
     and the refinement stalled at 2^-456), and on a dense SPD matrix."""
@@ -315,3 +317,25 @@ def test_profiler_takes_three_words():
     with pytest.raises(SystemExit):
         profile_phases.main(["--fixture", "no.zip", "--scaledLimbs", "28"])
     assert "19-27" in profile_phases.__doc__
+
+
+def test_refinement_passes_count_the_factors_bits():
+    """solver/params.py::refinement_passes: none with every limb factored;
+    classic, the JAX package's ceil(K / Kf); scaled, the working bits over
+    the factor's, at most SCALED_FACTOR_BITS: unchanged for one word (K32 =
+    9, Kf = 8) and wherever 24 Kf <= 188, one more pass for two words of 9
+    at 400 bits and three words of 9 at 640 bits."""
+    from sdpb_tpu_torch.solver.params import SCALED_FACTOR_BITS, refinement_passes
+    assert SCALED_FACTOR_BITS == 188
+    jax_rule = lambda K, kf: 0 if K <= kf else -(-K // kf)
+    for K in range(2, 14):
+        for kf in range(2, K + 1):
+            assert refinement_passes(K, kf, False) == jax_rule(K, kf)
+    for K in range(2, 28):
+        for kf in range(2, min(K, 7) + 1):
+            assert refinement_passes(K, kf, True) == jax_rule(K, kf)
+    assert refinement_passes(9, 9, True) == 0
+    assert refinement_passes(9, 8, True) == jax_rule(9, 8) == 2
+    assert (refinement_passes(18, 9, True), jax_rule(18, 9)) == (3, 2)
+    assert (refinement_passes(27, 9, True), jax_rule(27, 9)) == (4, 3)
+    assert (refinement_passes(27, 8, True), jax_rule(27, 8)) == (4, 4)
