@@ -109,7 +109,8 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      product at S's and the X blocks' shapes and a 35-element one, Kg = 9
      and 7; Kg = 8 at the smaller shapes and the edge ones) and the classic K = 13 GEMM, factor and solves
      (phase 4's shapes) against their plain versions, bit for bit, with
-     mpmath spot checks, times and bounds; the certificate to optimality at
+     mpmath spot checks, times and bounds (each K = 13 GEMM shape's share of
+     its bound on a line of its own); the certificate to optimality at
      640 bits in three words in the CLI's chunked loop (y* matches); the
      ladder at 640 bits in three words and classic K = 13, WIDE3_ITERATIONS
      + 1 iterations each in the host loop: identical steps, the digits the
@@ -642,8 +643,10 @@ def kernel_bound(name, shape, K, scaled, skipped=0):
     add, mul, rsqrt, recip = mp_op_counts(K, scaled)
     per_elem = K * (4 if scaled else 8) + (4 if scaled else 0)
     if name == "mp_matmul":
+        # the Kd products and Kd - 1 sums the product needs, as for the
+        # wide GEMMs: the kernel's work on the zero padding is not counted
         B, M, Kd, N = shape
-        ops = B * M * N * 8 * math.ceil(Kd / 8) * (mul + add)
+        ops = B * M * N * (Kd * mul + (Kd - 1) * add)
         elems = B * (M * Kd + Kd * N + M * N)
     elif name == "mp_cholesky":
         B, n = shape
@@ -1916,6 +1919,10 @@ def wide3_phase(torch, mp, kernels, cli, dev):
     rows = wide3_kernel_rows(torch, kernels, dev)
     _print_rows(rows)
     crows = kernel_phase(torch, mp, kernels, dev, scaled=False, K=13)
+    for name, shape, _, _, ms, _, bound, _ in crows:
+        if name == "mp_matmul":
+            print(f"classic K=13 GEMM {shape}: {ms:.3f} ms, {bound / ms:.1%} of its bound "
+                  f"({bound:.4f} ms)")
     print(f"17a-b kernels: {time.time() - t0:.1f} s")
     t0 = time.time()
     cert = certificate_phase(torch, kernels, cli, dev, scaled=True, prec="640",

@@ -70,6 +70,16 @@ __device__ __forceinline__ void split(float a, float& hi, float& lo) {
   lo = a - hi;
 }
 
+// The two quick-two-sum compaction passes that end a renorm, over xs[0..K]:
+// top-down, then bottom-up.
+template <int K, int M, typename T>
+__device__ __forceinline__ void compact(T (&xs)[M]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) quick_two_sum(xs[i], xs[i + 1], xs[i], xs[i + 1]);
+#pragma unroll
+  for (int i = K - 1; i > 0; --i) quick_two_sum(xs[i - 1], xs[i], xs[i - 1], xs[i]);
+}
+
 // Distillation renorm of M raw terms, in place, leaving K limbs in
 // xs[0..K-1] (mplist.renorm_list, mpfloat._sweep_unrolled + compaction):
 // K bottom-up TwoSum sweeps, the residue chain-summed into slot K, then a
@@ -86,10 +96,43 @@ __device__ __forceinline__ void renorm_terms(T (&xs)[M]) {
 #pragma unroll
   for (int i = M - 2; i >= K; --i) s = s + xs[i];
   xs[K] = s;
+  compact<K>(xs);
+}
+
+// One step of renorm_terms's K sweeps over M rows run as a skewed wavefront
+// (the schedule of mp_wide3.cuh's skewed_sweeps and mpfloat.sweeps): at step
+// t sweep k works on row M-1-t+2k, so the step's K TwoSums depend only on the
+// step before (sweep k's carry c[k], and v[k], what sweep k-1 left of that
+// row), where renorm_terms runs a row's K TwoSums one after another.  `in`
+// is row M-1-t, sweep 0's input.  Sweep k starts at step 2k (its carry is
+// its first row) and runs its TwoSums at 2k < t <= M-1+k, the same TwoSums
+// on the same values as renorm_terms.  EDGE: t may lie outside some sweep's
+// range (steps t < 2K-1 or t > M-1, unrolled, so that t is a constant);
+// otherwise every sweep runs.  Returns what sweep K-1 leaves of row
+// M-t+2K-2, a residue row, when sweep K-1 runs.
+template <int K, bool EDGE, typename T>
+__device__ __forceinline__ T wave_step(T (&c)[K], T (&v)[K], const int t, const int M,
+                                       const T in) {
+  T out = T(0);
 #pragma unroll
-  for (int i = 0; i < K; ++i) quick_two_sum(xs[i], xs[i + 1], xs[i], xs[i + 1]);
-#pragma unroll
-  for (int i = K - 1; i > 0; --i) quick_two_sum(xs[i - 1], xs[i], xs[i - 1], xs[i]);
+  for (int k = K - 1; k >= 0; --k) {
+    const T xin = k == 0 ? in : v[k];
+    if (EDGE) {
+      if (t < 2 * k || t > M - 1 + k) continue;  // sweep k not begun, or done
+      if (t == 2 * k) {                          // sweep k begins
+        c[k] = xin;
+        continue;
+      }
+    }
+    T s, e;
+    two_sum(xin, c[k], s, e);
+    c[k] = s;
+    if (k < K - 1)
+      v[k + 1] = e;  // sweep k+1's input at the next step
+    else
+      out = e;
+  }
+  return out;
 }
 
 // The truncated product's K*K+1 terms in mplist order: exact TwoProds for
@@ -131,6 +174,85 @@ __device__ __forceinline__ void mul_terms(const T (&a)[K], const T (&b)[K],
 #pragma unroll
   for (int i = 2; i < K; ++i) tail = tail + a[i] * b[K - i];
   xs[t] = put(tail, K);
+}
+
+// The truncated product's renorm_terms<K, K*K+1> over mul_terms's terms,
+// without its compaction, leaving xs[0..K], with the sweeps run as a
+// skewed wavefront (wave_step) and no term stored: each is made where
+// sweep 0 reads it from the limbs a and b (a limb product, or its Dekker
+// error with both limbs split again, operation for operation as mul_terms
+// makes it), the rows walked from the last: the tail, then by diagonal n
+// from K-1 down, its products (i = n..0), then the errors it lists (i =
+// n-1..0).  The first 2K-1 steps and the last K-1, where sweeps begin and
+// end, are unrolled; the steps in between are one loop a diagonal.  So the
+// code holds a few steps where the unrolled form holds the K^3 TwoSums of
+// renorm_terms over K^2+1 terms, and a thread keeps 2K carries in
+// registers and 2K limbs in its frame where the unrolled form keeps K^2+1
+// terms (at classic K = 13, 170 float64 terms: 5.2 KB of spills an
+// outlined product, 2.6x K = 12's, and a third of K = 12's products a
+// second over the card, where one thread's latency grew only 1.32x;
+// tools/kernel_report.py, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6).
+template <int K, typename T>
+__device__ __forceinline__ void mul_sweeps(const T (&a)[K], const T (&b)[K], T (&xs)[K + 1]) {
+  constexpr int M = K * K + 1;
+  T L[2 * K];  // a and b, read at run-time indices
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    L[i] = a[i];
+    L[K + i] = b[i];
+  }
+  auto prod = [&](const int i, const int j) { return L[i] * L[K + j]; };
+  auto err = [&](const int i, const int j) {
+    const T x = L[i], y = L[K + j];
+    const T p = x * y;
+    T xh, xl, yh, yl;
+    split(x, xh, xl);
+    split(y, yh, yl);
+    return ((xh * yh - p) + xh * yl + xl * yh) + xl * yl;
+  };
+  T tail = a[1] * b[K - 1];
+#pragma unroll
+  for (int i = 2; i < K; ++i) tail = tail + a[i] * b[K - i];
+
+  T c[K], v[K];
+  // steps 0 .. 2K-2: the tail, diagonal K-1's products, its errors i = K-2..1
+#pragma unroll
+  for (int t = 0; t < 2 * K - 1; ++t) {
+    const T in = t == 0 ? tail : t <= K ? prod(K - t, t - 1) : err(2 * K - 1 - t, t - K - 1);
+    wave_step<K, true>(c, v, t, M, in);
+  }
+  // steps 2K-1 .. M-1, every sweep running: sweep K-1's residue rows are
+  // chain-summed from the last, as renorm_terms sums them
+  T chain = wave_step<K, false>(c, v, 0, M, err(0, K - 2));
+#pragma unroll 1
+  for (int n = K - 2; n >= 0; --n) {
+#pragma unroll 1
+    for (int i = n; i >= 0; --i) chain = chain + wave_step<K, false>(c, v, 0, M, prod(i, n - i));
+#pragma unroll 1
+    for (int i = n - 1; i >= 0; --i)
+      chain = chain + wave_step<K, false>(c, v, 0, M, err(i, n - 1 - i));
+  }
+  // steps M .. M+K-2: the sweeps end
+#pragma unroll
+  for (int t = M; t < M + K - 1; ++t) chain = chain + wave_step<K, true>(c, v, t, M, T(0));
+#pragma unroll
+  for (int k = 0; k < K; ++k) xs[k] = c[k];
+  xs[K] = chain;
+}
+
+// Where the classic product runs as mul_sweeps: K >= 11, the builds where it
+// measured faster than the unrolled form in the GEMM, the factor and the
+// solve alike (K = 13 GEMM 3.2-3.3x).  At classic K = 3-10 one of them ran
+// more than 3% slower so (a loop step and its loads against a handful of
+// TwoSums).  The scaled product keeps the unrolled form at every K: at
+// K = 9 its GEMM, solve and 120-block factor ran 1.1-1.9x faster as
+// mul_sweeps, but a one-block factor 2.9-4.6% slower (its pivot chain's
+// rsqrt, one thread's latency).  (tools/kernel_times.py --classic-ks /
+// --scaled-ks and --labels wide, both forms and the parent in turns;
+// NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6.)
+template <int K>
+__host__ __device__ constexpr bool wavefront_product() {
+  return K >= 11;
 }
 
 // Newton steps: limbs of accuracy double per step from one, plus one.
@@ -211,9 +333,19 @@ __device__ __forceinline__ MPv<K> sub(const MPv<K>& a, const MPv<K>& b) {
 // Truncated product (mplist._mul_terms_classic + mul).
 template <int K>
 __device__ __forceinline__ MPv<K> mul(const MPv<K>& a, const MPv<K>& b) {
-  double xs[K * K + 1];
-  mul_terms<K>(a.x, b.x, xs, [](double v, int) { return v; });
-  return renorm<K, K * K + 1>(xs);
+  if constexpr (wavefront_product<K>()) {
+    double xs[K + 1];
+    mul_sweeps<K>(a.x, b.x, xs);
+    compact<K>(xs);
+    MPv<K> r;
+#pragma unroll
+    for (int i = 0; i < K; ++i) r.x[i] = xs[i];
+    return r;
+  } else {
+    double xs[K * K + 1];
+    mul_terms<K>(a.x, b.x, xs, [](double v, int) { return v; });
+    return renorm<K, K * K + 1>(xs);
+  }
 }
 
 // 1/sqrt(a) for a > 0: r <- r (3/2 - a r^2 / 2), seeded with the correctly

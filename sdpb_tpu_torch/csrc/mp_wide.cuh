@@ -196,10 +196,7 @@ __device__ __forceinline__ SV<K> finish(float* x, int m, int e) {
   float xs[K + 1];
 #pragma unroll
   for (int i = 0; i <= K; ++i) xs[i] = x[i];
-#pragma unroll
-  for (int i = 0; i < K; ++i) mpk::quick_two_sum(xs[i], xs[i + 1], xs[i], xs[i + 1]);
-#pragma unroll
-  for (int i = K - 1; i > 0; --i) mpk::quick_two_sum(xs[i - 1], xs[i], xs[i - 1], xs[i]);
+  mpk::compact<K>(xs);
   SV<K> r;
 #pragma unroll
   for (int i = 0; i < K; ++i) r.x[i] = xs[i];

@@ -159,12 +159,12 @@ __device__ __forceinline__ float term_row(const float* L, const int mode, const 
 
 // The K extraction sweeps of mpw::sweeps<K, CHAIN, 0> over m rows, the
 // same TwoSums on the same values, run as a skewed wavefront: at step t
-// sweep k works on row j = m-1-t+k, so the K TwoSums of a step depend only
+// sweep k works on row j = m-1-t+2k, so the K TwoSums of a step depend only
 // on the step before (sweep k's carry c[k], and v[k], what sweep k-1 left
 // of row j), where mpw::sweeps runs a row's K TwoSums one after another.
 // Sweep k starts at step 2k (c[k] = its first row) and runs TwoSums for
 // 2k < t <= m-1+k; the row leaving sweep K-1 at step t >= 2K-1 is final
-// row j + K = m-t+2K-2: without CHAIN it is stored lifted by 2^(24K) (what
+// row j + 1 = m-t+2K-2 (j that sweep's row): without CHAIN it is stored lifted by 2^(24K) (what
 // every caller did next to the residual rows), with CHAIN chain-summed in
 // the order mpw::sweeps sums it and returned.  Rows below `mem` are read
 // from x (steps 2K-1 .. m-1 fetch them two steps ahead), rows from `mem` up
@@ -243,10 +243,7 @@ static __device__ __noinline__ SVk finish_o(float* x, const int m, const int mem
   xs[K] = skewed_sweeps<true>(x, m, mem, L, mode);
 #pragma unroll
   for (int i = 0; i < K; ++i) xs[i] = x[i];
-#pragma unroll
-  for (int i = 0; i < K; ++i) mpk::quick_two_sum(xs[i], xs[i + 1], xs[i], xs[i + 1]);
-#pragma unroll
-  for (int i = K - 1; i > 0; --i) mpk::quick_two_sum(xs[i - 1], xs[i], xs[i - 1], xs[i]);
+  mpk::compact<K>(xs);
   SVk r;
 #pragma unroll
   for (int i = 0; i < K; ++i) r.x[i] = xs[i];

@@ -6,7 +6,8 @@
 Run it as a file (not with -m), on a CUDA card.  `--root` names the
 checkout whose `sdpb_tpu_torch` (sources and wrappers) is measured; the
 default is the one holding this script.  For classic K = 4, 5 and scaled
-K = 8, 9 (the ladder's factor and GEMM limbs), and for the three-word
+K = 8, 9 (the ladder's factor and GEMM limbs), classic K = 12 and 13 (the
+GEMM limbs of --precision 577-681), and for the three-word
 kernels at Kg = 9 (--precision 640), it reports:
   * ptxas: registers, stack frame, spill stores and loads of every kernel
     of `kernels.SOURCES` and `kernels.WIDE3_SOURCES` (nvcc -Xptxas -v, the
@@ -22,7 +23,7 @@ kernels at Kg = 9 (--precision 640), it reports:
     products a loop step; and each one's rate over the whole card.
 The kernels' times and their bits against the plain versions are
 chip_smoke.py's (phases 4, 7, 10) and tools/kernel_times.py's.
-The scaled K = 8 SASS listings go to --out (default
+The scaled K = 8 and classic K = 12, 13 SASS listings go to --out (default
 build/kernel_report), gzipped.  The last line is one JSON object
 with all of it and the card's name and power limit.
 """
@@ -41,7 +42,9 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[2]
 PROBE = Path(__file__).resolve().parent / "mp_chain_probe.cu"
-BUILDS = ((False, 4), (False, 5), (True, 8), (True, 9))
+BUILDS = ((False, 4), (False, 5), (False, 12), (False, 13), (True, 8), (True, 9))
+# the builds whose SASS listings are written to --out
+LISTED = ((True, 8), (False, 12), (False, 13))
 # the three-word libraries reported (ptxas and SASS only)
 WIDE3_BUILDS = (9,)
 # (op of mp_chain_probe.cu, name, steps a thread, products a step)
@@ -173,7 +176,9 @@ def main(argv=None) -> int:
         with ThreadPoolExecutor(len(jobs)) as pool:
             for (src, s, K), info in pool.map(compile_one, jobs):
                 report["ptxas"].setdefault(_tag(s, K), {}).update(info)
-        kernels.build([4, 5, 8, 9], [False, True], [], probe=False, wide3_Ks=WIDE3_BUILDS)
+        for rep in (False, True):
+            kernels.build([K for s, K in BUILDS if s == rep], [rep], [], probe=False,
+                          wide3_Ks=WIDE3_BUILDS)
         print(f"compiled in {time.time() - t0:.1f} s", flush=True)
         for K in WIDE3_BUILDS:
             tag = _tag(kernels.WIDE3, K)
@@ -191,8 +196,8 @@ def main(argv=None) -> int:
                               ("probe", tmp / f"probe_k{K}{int(s)}.so")):
                 sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                                       text=True, check=True).stdout
-                if (s, K) == (True, 8):
-                    with gzip.open(outdir / f"sass_{what}_s8.txt.gz", "wt") as f:
+                if (s, K) in LISTED:
+                    with gzip.open(outdir / f"sass_{what}_{_tag(s, K)[0]}{K}.txt.gz", "wt") as f:
                         f.write(sass)
                 report["sass"].setdefault(tag, {}).update(_sass_counts(sass))
             for name, info in report["ptxas"][tag].items():

@@ -194,11 +194,12 @@ def test_cuda_dispatch_raises_on_what_the_kernels_cannot_take(cuda):
     x = torch.zeros((2, 1, 3, 3), dtype=torch.float32, device=cuda)
     with pytest.raises(TypeError):
         tk.mp_matmul(tmp.MP(x), tmp.MP(x))
-    ten = tmp.MP(torch.zeros((10, 1, 3, 3), dtype=torch.float64, device=cuda))
+    # classic limbs past the kernels' K = 13
+    fourteen = tmp.MP(torch.zeros((14, 1, 3, 3), dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError):
-        tk.mp_cholesky(ten)
+        tk.mp_cholesky(fourteen)
     with pytest.raises(ValueError):
-        tk.mp_matmul(tmp.MP(ten.limbs[:2]), tmp.MP(ten.limbs[:2].cpu()))
+        tk.mp_matmul(tmp.MP(fourteen.limbs[:2]), tmp.MP(fourteen.limbs[:2].cpu()))
 
 
 @pytest.mark.parametrize("scaled_limbs", [0, 7])
@@ -271,16 +272,16 @@ def _trsm_matches(cuda, t, b, scaled, label):
         assert _same(X, want), (label, lower)
 
 
-@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("scaled,K", [(False, 4), (False, 12), (False, 13), (True, 8)])
 @pytest.mark.parametrize("n", TRSM_NS)
-def test_trsm_kernel_matches_plain_version_at_edge_shapes(cuda, n, scaled):
+def test_trsm_kernel_matches_plain_version_at_edge_shapes(cuda, n, scaled, K):
     """Lower and upper, classic K=4 and scaled K=8 (the ladder's factor
-    limbs): the kernel bit for bit with its plain version on the card.  At
+    limbs), classic K=12 and 13 (the product of --precision 577-681): the
+    kernel bit for bit with its plain version on the card.  At
     n = 130 (T's triangle 8515 elements, 272 KB classic, 306 KB scaled)
     nothing is in shared memory; at every other n, as at the ladder's
     shapes (n <= 57, m <= 38), everything is."""
-    K = 8 if scaled else 4
-    rng = np.random.default_rng(500 + n + 1000 * scaled)
+    rng = np.random.default_rng(500 + n + 1000 * scaled + (10 * K if K >= 12 else 0))
     for m, B in TRSM_MB:
         t, b = _trsm_operands(rng, B, n, m, K, scaled)
         _trsm_matches(cuda, t, b, scaled, (m, B))
@@ -308,7 +309,7 @@ def test_trsm_kernel_past_shared_memory(cuda, scaled, K, n, m):
 
 GEMM_KDS = (1, 7, 8, 9, 57, 129)
 GEMM_MN = ((1, 33), (33, 1), (15, 15))
-BUILDS = ((False, 4), (False, 8), (True, 8), (True, 9))
+BUILDS = ((False, 4), (False, 8), (False, 11), (False, 12), (False, 13), (True, 8), (True, 9))
 
 
 def _operand(rng, shape, K, scaled, device, decades=2.0):
@@ -319,10 +320,11 @@ def _operand(rng, shape, K, scaled, device, decades=2.0):
 @pytest.mark.parametrize("Kd", GEMM_KDS)
 @pytest.mark.parametrize("scaled,K", BUILDS)
 def test_gemm_kernel_matches_plain_version_at_edge_shapes(cuda, scaled, K, Kd):
-    """Classic K = 4 and 8, scaled K = 8 and 9: contractions of one chunk
-    and less, a chunk and one, 8 and 17 chunks; one row, one column and a
-    square output; one batch element and more than the card has SMs.  The
-    kernel bit for bit with its plain version on the card, one launch."""
+    """Classic K = 4, 8, 11, 12 and 13, scaled K = 8 and 9: contractions of
+    one chunk and less, a chunk and one, 8 and 17 chunks; one row, one
+    column and a square output; one batch element and more than the card
+    has SMs.  The kernel bit for bit with its plain version on the card,
+    one launch."""
     rng = np.random.default_rng(800 + Kd + 10 * K + 1000 * scaled)
     for M, N in GEMM_MN:
         for B in (1, 133):
@@ -356,9 +358,10 @@ CHOL_NS = (1, 2, 31, 32, 33, 57, 65, 130)
 
 
 @pytest.mark.parametrize("n", CHOL_NS)
-@pytest.mark.parametrize("scaled,K", [(False, 4), (True, 8), (True, 9)])
+@pytest.mark.parametrize("scaled,K", [(False, 4), (False, 12), (False, 13), (True, 8),
+                                      (True, 9)])
 def test_cholesky_kernel_matches_plain_version_at_edge_shapes(cuda, scaled, K, n):
-    """Classic K = 4, scaled K = 8 and 9 (graded over 5 decades): one and
+    """Classic K = 4, 12 and 13, scaled K = 8 and 9 (graded over 5 decades): one and
     two pivots, a warp's width of pivots and one either side, the ladder's
     57, and past two warps of rows (one batch element there, so that the
     plain version stays fast).  Bit for bit, one launch."""

@@ -399,3 +399,134 @@ def test_scaled_rsqrt_and_factor_stall_near_2_pow_minus_188(monkeypatch):
                 scale = mpmath.sqrt(_scaled_mpf(*A, (0, i, i)) * _scaled_mpf(*A, (0, j, j)))
                 worst = max(worst, abs(rec - _scaled_mpf(*A, (0, i, j))) / scale)
         assert mpmath.mpf(2) ** -200 < worst < mpmath.mpf(2) ** -182
+
+
+def _kernel_product(a, b):
+    """The classic MP product as csrc/mp.cuh runs it where
+    wavefront_product holds (K >= 11: mpk::mul_sweeps, compact), one lane
+    per element: the K sweeps as a skewed wavefront (wave_step: at step t
+    sweep k works on row M-1-t+k, M = K^2+1), each term made from the limbs
+    where sweep 0 reads it, the rows walked from the last (the chained
+    tail; then by diagonal n from K-1 down, its products i = n..0, then the
+    errors of diagonal n-1 it lists, i = n-1..0), sweep K-1's residue rows
+    chain-summed as they leave it."""
+    K = a.K
+    al, bl = list(a.limbs.unbind(0)), list(b.limbs.unbind(0))
+
+    def two_sum(x, y):
+        s = x + y
+        v = s - x
+        return s, (x - (s - v)) + (y - v)
+
+    def hi(x):
+        t = 134217728.0 * x + x
+        return t - (t - x)
+
+    ah, bh = [hi(x) for x in al], [hi(x) for x in bl]
+
+    def prod(i, j):
+        return al[i] * bl[j]
+
+    def err(i, j):
+        p = al[i] * bl[j]
+        xl, yl = al[i] - ah[i], bl[j] - bh[j]
+        return ((ah[i] * bh[j] - p) + ah[i] * yl + xl * bh[j]) + xl * yl
+
+    M = K * K + 1
+    c, v = [None] * K, [None] * K
+
+    def step(t, row, edge):
+        out = None
+        for k in range(K - 1, -1, -1):
+            xin = row if k == 0 else v[k]
+            if edge and (t < 2 * k or t > M - 1 + k):
+                continue
+            if edge and t == 2 * k:
+                c[k] = xin
+                continue
+            c[k], e = two_sum(xin, c[k])
+            if k < K - 1:
+                v[k + 1] = e
+            else:
+                out = e
+        return out
+
+    tail = al[1] * bl[K - 1]
+    for i in range(2, K):
+        tail = tail + al[i] * bl[K - i]
+    for t in range(2 * K - 1):
+        step(t, tail if t == 0 else prod(K - t, t - 1) if t <= K
+             else err(2 * K - 1 - t, t - K - 1), True)
+    chain = step(0, err(0, K - 2), False)
+    for n in range(K - 2, -1, -1):
+        for i in range(n, -1, -1):
+            chain = chain + step(0, prod(i, n - i), False)
+        for i in range(n - 1, -1, -1):
+            chain = chain + step(0, err(i, n - 1 - i), False)
+    for t in range(M, M + K - 1):
+        chain = chain + step(t, torch.zeros_like(chain), True)
+    xs = c + [chain]
+    for i in range(K):
+        s = xs[i] + xs[i + 1]
+        xs[i], xs[i + 1] = s, xs[i + 1] - (s - xs[i])
+    for i in range(K - 1, 0, -1):
+        s = xs[i - 1] + xs[i]
+        xs[i - 1], xs[i] = s, xs[i] - (s - xs[i - 1])
+    return tmp.MP(torch.stack(xs[:K]))
+
+
+@pytest.mark.parametrize("K", [2, 5, 11, 12, 13])
+def test_kernel_product_schedule_is_the_plain_product(K):
+    """The CUDA kernels' wavefront MP product (_kernel_product: the sweeps
+    as a skewed wavefront over terms made where they are read; the kernels
+    build it at classic K >= 11, the schedule holds at every K) gives the
+    bits of the plain product mpfloat.kmul (renorm's sweeps over the stored
+    term list): on ladders of fresh limbs, on limbs of any magnitude in any
+    order, with exact zeros and with b = -a."""
+    rng = np.random.default_rng(700 + K)
+    n = 96
+    a, b = rand_limbs(rng, (n,), K), rand_limbs(rng, (n,), K)
+    a[:, 32:64] = rng.standard_normal((K, 32)) * np.exp2(rng.integers(-80, 80, (K, 32)))
+    a[:, :8] = 0.0
+    b[:, 8:16] = -a[:, 8:16]
+    a, b = T(a), T(b)
+    got, want = _kernel_product(a, b), tmp.kmul(a, b)
+    assert torch.equal(got.limbs.view(torch.int64), want.limbs.view(torch.int64))
+
+
+@pytest.mark.parametrize("K", [10, 11, 12, 13])
+def test_classic_product_and_matmul_plain_against_mpmath(K):
+    """At the classic limb counts of --precision 531-681, the plain product
+    (mpfloat.kmul, the kernels' order) and mp_matmul_plain against mpmath
+    on seeded inputs whose limbs all carry fresh bits.  The truncated
+    product drops the limb products a_i b_j with i + j > K and the errors
+    of those with i + j = K; with |a_i| < 2^-53i |a_0| they add up to less
+    than K^2 2^-53(K+1) |a_0 b_0|, and the K result limbs round the rest at
+    about 2^-53K: |r - a b| <= 2^-(53K-3) |a_0 b_0| (these inputs reach
+    2^-(53K+1.2)).  A GEMM output adds
+    the Kd products and Kd - 1 sums of such errors: |r - sum a_t b_t| <=
+    2^-(53K-10) sum |a_t b_t| (chip_smoke.py's spot check)."""
+    import mpmath
+    rng = np.random.default_rng(1000 + K)
+    n = 24
+    a, b = rand_limbs(rng, (n,), K), rand_limbs(rng, (n,), K)
+    r = limbs_of(tmp.kmul(T(a), T(b)))
+    Bb, Mm, Kd, Nn = 2, 2, 11, 2
+    x, y = rand_limbs(rng, (Bb, Mm, Kd), K), rand_limbs(rng, (Bb, Kd, Nn), K)
+    g = limbs_of(tk.mp_matmul_plain(T(x), T(y)))
+
+    def val(limbs, idx):
+        return mpmath.fsum(mpmath.mpf(float(v)) for v in limbs[(slice(None),) + idx])
+
+    with mpmath.workprec(53 * K + 120):
+        worst = max(abs(val(r, (i,)) - val(a, (i,)) * val(b, (i,)))
+                    / abs(mpmath.mpf(float(a[0, i])) * float(b[0, i])) for i in range(n))
+        assert worst <= mpmath.mpf(2) ** -(53 * K - 3), float(mpmath.log(worst, 2))
+        worst = mpmath.mpf(0)
+        for bi in range(Bb):
+            for mi in range(Mm):
+                for ni in range(Nn):
+                    terms = [val(x, (bi, mi, t)) * val(y, (bi, t, ni)) for t in range(Kd)]
+                    worst = max(worst, abs(val(g, (bi, mi, ni)) - mpmath.fsum(terms))
+                                / mpmath.fsum(abs(t) for t in terms))
+        assert worst <= mpmath.mpf(2) ** -(53 * K - 10), float(mpmath.log(worst, 2))

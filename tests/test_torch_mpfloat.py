@@ -194,7 +194,7 @@ def _sequential_sweeps(xs, K, chain):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("K,m,chain", [(2, 4, True), (3, 8, True), (5, 12, True),
                                        (9, 30, True), (3, 8, False), (9, 20, False),
-                                       (4, 3, False)])
+                                       (4, 3, False), (12, 145, True), (13, 170, True)])
 def test_sweeps_wavefront_equals_sequential(K, m, chain, dtype):
     """mpfloat.sweeps (every renorm's extraction, run as a wavefront) gives
     the bits of the sweeps run one after the other, on rows of mixed signs
