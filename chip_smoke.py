@@ -5,11 +5,13 @@
 
 Run from the root of a checkout.  Phases, each fatal on failure:
   1. device: nvidia-smi name and power limit, torch / CUDA / nvcc versions;
-  2. build: the CUDA kernels, from sdpb_tpu_torch/csrc: classic K = 2-9
-     and 13 (10-12 run in no phase: `--classic-limbs` below), scaled 2-9,
-     the two-word GEMM for
-     every word size, the three-word GEMM and elementwise kernels (Kg = 3,
-     7, 8, 9), the peak probe;
+  2. build: the CUDA kernels the phases load, from sdpb_tpu_torch/csrc:
+     classic K = 2-5 and scaled 5-9 before phase 3; classic K = 7, 8 and
+     13, the two-word GEMM at Kg = 5 and 9, the three-word GEMM and
+     elementwise kernels at Kg = 7, 8 and 9 and the peak probe in
+     background processes beside phases 3-16 (FIRST_LIBS, LATER_LIBS;
+     other limb counts build at first use, and `--classic-limbs` below
+     builds classic K = 10-12);
   3. exactness: TwoSum and TwoProd exact on the card, in plain torch and
      inside the kernels (through 1 x 1 and 1 x 2 mp_matmuls), float64 and
      float32;
@@ -45,6 +47,10 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      exponents bit-identical, spot checks against mpmath, times, bounds,
      shares of the bound; and the wide path's factor (the scaled build at
      Kf=9, on word 0) at the ladder's three factor shapes, the same way;
+     the plain versions of every row but the one the kernels' record
+     reports on PLAIN_BLOCKS blocks of the batch (plain_blocks: the first,
+     the last and two between), on the CPU in background worker processes,
+     which make the operands too;
  11. the ladder at --precision 400 in the wide representation (2 words x 9
      float32 limbs) and classic (K=8), WIDE_ITERATIONS + 1 iterations each:
      finite statistics, falling mu, out.txt, the wide GEMM and the scaled
@@ -65,7 +71,7 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      is phase 11's, with one steady iteration, and phase 11's classic run
      and phase 12 lie between it and the profile: a weaker gate);
  14. the chunked loop on the ladder, classic K=5 and scaled K32=9
-     (LADDER_ITERATIONS, the CLI's chunks of 8) and wide 2x9
+     (LADDER_ITERATIONS, chunks of LADDER_CHUNK) and wide 2x9
      (WIDE_ITERATIONS, one chunk), against the host loop's runs of the same
      commands in phases 6, 9 and 11: every
      statistic of every iteration, the reason, the count and the final
@@ -77,7 +83,8 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      per replay, plus the eager warm-up's).  These runs are the main path
      whose launches the kernels' record reports;
  15. checkpoints, resume and the timing run through the CLI on the ladder:
-     classic K=5 and scaled K32=9 solved over two chunks with a checkpoint
+     classic K=5 and scaled K32=9 solved over two chunks of
+     CHECKPOINT_CHUNK with a checkpoint
      at each chunk's start and the final one (two generations kept), the
      final state saved and loaded on the card bit for bit (an element whose
      tail the arithmetic left above half an ulp comes back re-distilled to
@@ -102,7 +109,8 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      on the dim-2 certificate to the bisected optimum and on the first
      OUTER_BLOCKS ladder blocks (N = 15, degree 18) against the JAX
      package's committed out.json, with every solve's host, solve and
-     capture seconds;
+     capture seconds, run in a process of its own from phase 15 on (its
+     mesh search on the host is the script's longest host-bound stretch);
  17. three words (--precision 640: 3 words x 9 float32 limbs) and classic
      K = 13: the three-word kernels (the GEMM at the ladder's two GEMM
      shapes and two edge shapes of its tiling, the elementwise sum and
@@ -110,7 +118,8 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      and 7; Kg = 8 at the smaller shapes and the edge ones) and the classic K = 13 GEMM, factor and solves
      (phase 4's shapes) against their plain versions, bit for bit, with
      mpmath spot checks, times and bounds (each K = 13 GEMM shape's share of
-     its bound on a line of its own); the certificate to optimality at
+     its bound on a line of its own); the plain versions as in phase 10
+     (the record's rows, Kg = 9, on the card over the whole batch); the certificate to optimality at
      640 bits in three words in the CLI's chunked loop (y* matches); the
      ladder at 640 bits in three words and classic K = 13, WIDE3_ITERATIONS
      + 1 iterations each in the host loop: identical steps, the digits the
@@ -120,8 +129,7 @@ Run from the root of a checkout.  Phases, each fatal on failure:
 Every CLI call writes its checkpoints into a temporary directory (-c), and
 the ladder phases but 15 pass --timingRun never.  Each SDP file is
 parsed once per limb count, those the phases read ahead in worker
-processes while the build runs (_SdpReads), and the classic K = 13
-libraries build beside phases 3-16.
+processes while the build runs (_SdpReads).
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is the kernels' JSON record, and the line before that the card's name
 and power limit.  Without CUDA, or outside a checkout, the script exits
@@ -154,7 +162,6 @@ import statistics
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 from fractions import Fraction
 from pathlib import Path
@@ -162,15 +169,24 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 LADDER = ROOT / "fixtures" / "ising_ladder_120" / "sdp.zip"
 CERTIFICATE = ROOT / "fixtures" / "dim2_certificate" / "sdp.zip"
-# the ladder's --maxIterations in phases 6, 9 and 14 (two chunks of the
-# chunked loop) and, two words, in phases 11 and 14; phase 17's three words
-# and classic K = 13 (two chunks of WIDE3_CHUNK)
-LADDER_ITERATIONS = 8
+# the ladder's --maxIterations in phases 6, 9 and 14 (in phase 14 two
+# chunks of LADDER_CHUNK, so that the state crosses a chunk's end) and,
+# two words, in phases 11 and 14; phase 17's three words and classic K =
+# 13 (two chunks of WIDE3_CHUNK)
+LADDER_ITERATIONS, LADDER_CHUNK = 3, 2
 WIDE_ITERATIONS = 1
 WIDE3_ITERATIONS = 2
-# phase 15: the checkpointed solve's --maxIterations (two chunks of 8) and
-# the resumed solves'
-CHECKPOINT_ITERATIONS, RESUME_ITERATIONS = 8, 1
+# phase 15: the checkpointed solve's --maxIterations (two chunks of
+# CHECKPOINT_CHUNK: a save at each one's start) and the resumed solves'
+CHECKPOINT_ITERATIONS, RESUME_ITERATIONS, CHECKPOINT_CHUNK = 2, 1, 2
+# the blocks of a batch whose plain version a kernel is held to, where the
+# plain version runs in a worker process on the CPU (plain_blocks): each
+# kernel works block by block, and the plain versions, host-bound on the
+# card, cost the script minutes at full batch
+PLAIN_BLOCKS = 4
+# worker processes for that CPU work (at the lowest priority: they take the
+# cores the phases leave idle), started once the first libraries are built
+BACKGROUND_WORKERS = 4
 # --maxIterations of each ladder solve beside a profile (phase 13): 2 and 1
 # steady iterations, before and after it
 BRACKET_ITERATIONS = {"scaled": 2, "wide": 1}
@@ -232,6 +248,18 @@ WIDE3_KERNELS = {
 # ladder: S and the X blocks; and an edge shape (35 elements: a ragged
 # last block)
 WIDE3_EW_SHAPES = ((120, 57, 57), (120, 20, 20), (1, 5, 7))
+# the libraries the phases load: before phase 3 those of phases 3-9
+# (classic K = 2 the exactness checks, 3 the certificate at 150 bits (Kf =
+# 3), 4 and 5 the ladder (Kf = 4) and the profile (K = 4, Kf = 3); scaled 5
+# the exactness checks and the profile's factor, 6 and 7 the certificate,
+# 8 and 9 the ladder), then in background processes those of phases 10-16
+# (classic K = 8, the two-word GEMM at Kg = 5 and 9, the probe) and of
+# phase 17 (classic K = 7 and 13, the three-word kernels at Kg = 7, 8, 9).
+# A library no list names (a factor healed above its start) builds at its
+# first call.
+FIRST_LIBS = {False: (2, 3, 4, 5), True: (5, 6, 7, 8, 9)}
+LATER_LIBS = ({"classic": (8,), "wide": (5, 9), "probe": True},
+              {"classic": (7, 13), "wide3": (7, 8, 9)})
 PROBE_KERNEL = ("peak_probe", "sdpb_tpu_torch/csrc/peak_probe.cu",
                 "sdpb_tpu/tools/profile_phases.py:97")
 # phase 17: --precision 640, three words of 9 float32 limbs (27) against
@@ -254,7 +282,7 @@ PROBE_TILE, PROBE_CHECK_STEPS, PROBE_STEPS = (512, 512), 2048, 65536
 # phase 13's profiler runs: (label, --scaledLimbs, --reps); the gate reads
 # each profile's fastest call, so a profile of one call meets a slow
 # stretch of the shared host with nothing to spare it
-PROFILES = (("wide", 17, 3), ("classic", 0, 2), ("scaled", 9, 3))
+PROFILES = (("wide", 17, 2), ("classic", 0, 2), ("scaled", 9, 3))
 # H100 SXM at 700 W (NVIDIA data sheet): non-fused add/mul per second on
 # the CUDA cores (34 and 67 TFLOP/s count a fused multiply-add as two) and
 # device memory bytes per second
@@ -300,22 +328,53 @@ def _read_sdp(path, K):
     return sdp_zip.read_sdp(path, K, np.float64)
 
 
+def _lowest_priority():
+    """Initializer of a low-priority pool's workers: the lowest CPU priority
+    (nvcc under it too: the phases' host-bound work keeps its cores), one
+    torch thread."""
+    import os
+    import torch
+    os.nice(19)
+    torch.set_num_threads(1)
+
+
+def _pool(workers, low=False):
+    """The one way this script runs work beside the phases: a pool of
+    `workers` spawned processes (the parent holds a CUDA context, which a
+    fork would copy), at the lowest CPU priority with `low`.  A task is a
+    function of this module (the workers import it), so a script
+    that submits them keeps its work under `if __name__ == "__main__":`.
+    shutdown(cancel_futures=True) drops what has not started and waits for
+    what has."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    return ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=_lowest_priority if low else None)
+
+
+def _captured(fn, *args):
+    """A pool task: fn(*args) with what it prints captured, so that the
+    phase that waits for it prints it in its place: (text, result)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return buf.getvalue(), out
+
+
 class _SdpReads:
     """sdp_zip.read_sdp with each (file, limbs, dtype) parsed once: nothing
     here changes a problem once read, and parsing the ladder's decimal
     strings takes 8-25 s on one core (longer with more limbs), which every
-    CLI call would spend again.  The reads in `ahead` run in `workers`
-    processes (spawned: the parent holds a CUDA context; none when `ahead`
-    is empty) from the start, so that they overlap the build and the first
-    phases; close() stops them."""
+    CLI call would spend again.  The reads in `ahead` run in a _pool of
+    `workers` (none when `ahead` is empty) from the start, so that they
+    overlap the build and the first phases; close() stops them."""
 
     def __init__(self, read, ahead, workers=3):
-        import multiprocessing
         import numpy as np
-        from concurrent.futures import ProcessPoolExecutor
         self.read, self.done = read, {}
-        self.pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context(
-            "spawn")) if ahead else None
+        self.pool = _pool(workers) if ahead else None
         self.ahead = {self._key(path, K, np.float64): self.pool.submit(_read_sdp, str(path), K)
                       for path, K in ahead}
 
@@ -336,6 +395,104 @@ class _SdpReads:
     def close(self):
         if self.pool is not None:
             self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+def plain_blocks(B, n=PLAIN_BLOCKS):
+    """The blocks of a batch of B that a plain version run in the
+    background covers: the first, the last and n - 2 spread evenly
+    between them; every block when B <= n."""
+    if B <= n:
+        return list(range(B))
+    return sorted({round(i * (B - 1) / (n - 1)) for i in range(n)})
+
+
+def _parts(x):
+    """The (limbs, exp) pairs of an MP or MPW, for a pipe between processes."""
+    return [(w.limbs, w.exp) for w in getattr(x, "words", [x])]
+
+
+def _value(parts, dev=None):
+    """An MP (one pair) or MPW from _parts, on `dev` (default: where it is)."""
+    from sdpb_tpu_torch.ops import mpfloat as mp, mpwide
+    ws = [mp.MP(l if dev is None else l.to(dev), None if e is None else
+                (e if dev is None else e.to(dev))) for l, e in parts]
+    return ws[0] if len(ws) == 1 else mpwide.MPW(ws)
+
+
+def _blocks_of(x, blocks):
+    """The blocks `blocks` (the first axis of the value) of an MP or MPW."""
+    import torch
+    idx = torch.as_tensor(blocks, device=x.device)
+    return _value([(l.index_select(1, idx), None if e is None else e.index_select(0, idx))
+                   for l, e in _parts(x)])
+
+
+def _wide_task(op, G, Kg, shape_a, shape_b, seed, blocks):
+    """Background task of phases 10 and 17: the operands of one kernel row
+    (G words of Kg limbs, made from `seed`) and, unless `blocks` is None,
+    the plain version of `op` ("gemm", "add" or "mul") over those blocks of
+    the batch with its tally of the word TwoSums left as they were (three
+    words).  (a's parts, b's parts, the plain result's parts or None, the
+    tally, CPU seconds of the plain version)."""
+    import numpy as np
+    from sdpb_tpu_torch.ops import kernels, mpwide_kernel as wk
+    rng = np.random.default_rng(seed)
+    a = _wide_operand(rng, shape_a, Kg, 2.0, G)
+    b = _wide_operand(rng, shape_b, Kg, 2.0, G)
+    if blocks is None:
+        return _parts(a), _parts(b), None, 0, 0.0
+    sa, sb = _blocks_of(a, blocks), _blocks_of(b, blocks)
+    tally = wk.SkipTally()
+    t0 = time.time()
+    if op == "gemm" and G == 2:
+        out = kernels.mp_matmul_wide_plain(*kernels._canon_wide_pair(sa, sb)[:2])
+    elif op == "gemm":
+        out = kernels.mp_matmul_wide3_plain(*kernels._canon_wide_pair(sa, sb)[:2], tally)
+    else:
+        out = getattr(kernels, f"mp_wide3_{op}_plain")(sa, sb, tally)
+    return _parts(a), _parts(b), _parts(out), tally.count, time.time() - t0
+
+
+def _factor_task(Kf, B, n, seed, blocks):
+    """Background task of phase 10: a scaled SPD operand [B, n, n] at Kf
+    limbs graded over 6 decades (from `seed`) and the plain factor of its
+    `blocks`.  (its parts, the factor's parts, CPU seconds)."""
+    import numpy as np
+    from sdpb_tpu_torch.ops import kernels, mpfloat as mp
+    rng = np.random.default_rng(seed)
+    A = mp.from_parts(*mp.f64_limbs_to_scaled_parts(
+        _limbs(rng, (B, n, n), -(-(24 * Kf) // 53) + 1, spd=True, decades=3.0), Kf), "cpu")
+    t0 = time.time()
+    L = kernels.mp_cholesky_plain(_blocks_of(A, blocks))
+    return _parts(A), _parts(L), time.time() - t0
+
+
+def _kernel_task(K, blocks):
+    """Background task of phase 17: kernel_phase's rows at classic K (its
+    operands, from its seed in its order) in plain versions over `blocks`:
+    [(parts, CPU seconds)] in the order of its rows (the GEMM shapes, the
+    factor at n = 57 and 20, the solve lower and upper with the plain
+    factor of n = 57, which the kernel's factor matches bit for bit)."""
+    import torch
+    from sdpb_tpu_torch.ops import kernels, mpfloat as mp
+    gemms, spd, rhs = _kernel_inputs(False, K)[4:]
+    sub = lambda x: _blocks_of(mp.MP(torch.as_tensor(x)), blocks)
+    out = []
+
+    def timed(fn, *args):
+        t0 = time.time()
+        r = fn(*args)
+        out.append((_parts(r), time.time() - t0))
+        return r
+
+    for _, a, b in gemms:
+        timed(kernels.mp_matmul_plain, sub(a), sub(b))
+    L = timed(kernels.mp_cholesky_plain, sub(spd[57]))
+    timed(kernels.mp_cholesky_plain, sub(spd[20]))
+    for lower in (True, False):
+        T = L if lower else mp.MP(L.limbs.mT.contiguous())
+        timed(kernels.mp_solve_triangular_plain, T, sub(rhs), lower)
+    return out
 
 
 def check(cond, msg):
@@ -365,49 +522,54 @@ def device_phase(torch):
     return smi
 
 
-def build_phase(kernels):
-    """Phase 2: the libraries the phases load, as many objects at a time as
-    there are cores; the classic K = 13 ones, which only phase 17 loads and
-    whose objects compile longest (50-100 s), in a thread beside phases
-    3-16.  Returns the seconds and a callable that waits for that thread
-    and loads its libraries (raising what its build raised)."""
+def _build_task(libs):
+    """A background task: kernels.build of `libs` ({"classic": Ks, "wide":
+    Kgs, "wide3": Kgs, "probe": bool}); the names of what it compiled."""
+    from sdpb_tpu_torch.ops import kernels
+    return kernels.build(list(libs.get("classic", ())), (False,), list(libs.get("wide", ())),
+                         probe=bool(libs.get("probe")), wide3_Ks=list(libs.get("wide3", ())))
+
+
+def build_phase(kernels, background):
+    """Phase 2: the libraries phases 3-9 load (FIRST_LIBS), as many objects
+    at a time as there are cores; LATER_LIBS as tasks of the `background`
+    pool beside the phases.  Returns the seconds and, for each of
+    LATER_LIBS, a callable that waits for its build, loads its libraries
+    and returns the seconds it waited (a PhaseError if the build failed)."""
     phase("2. build")
     t0 = time.time()
-    # every limb count but classic K = 10-12, which no phase runs (their
-    # objects compile longest after K = 13's; tests/test_torch_cuda.py
-    # builds them)
-    Ks = [K for K in kernels.K_RANGE if K not in (10, 11, 12, 13)]
-    built = kernels.build(Ks)
-    for rep in (*kernels.REPRESENTATIONS, kernels.WIDE, kernels.WIDE3):
-        for K in kernels.k_range(rep):
-            if rep is not False or K in Ks:
-                kernels._library(K, rep)
-    kernels._probe_library()
-    print(f"build: {time.time() - t0:.1f} s for K={Ks} classic, "
-          f"K={list(kernels.SCALED_K_RANGE)} scaled, the two-word GEMM for "
-          f"Kg={list(kernels.WIDE_KG)}, the three-word GEMM for "
-          f"Kg={list(kernels.WIDE3_KG)} and the peak probe (compiled now: "
-          f"{len(built)} libraries); classic K=13 building beside phases 3-16")
-    raised = []
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(2) as pool:
+        built = sum(pool.map(lambda rep: kernels.build(FIRST_LIBS[rep], (rep,), (), probe=False,
+                                                       wide3_Ks=()), FIRST_LIBS), [])
+    for rep, Ks in FIRST_LIBS.items():
+        for K in Ks:
+            kernels._library(K, rep)
+    later = [(libs, background.submit(_captured, _build_task, libs)) for libs in LATER_LIBS]
+    print(f"build: {time.time() - t0:.1f} s for classic K={list(FIRST_LIBS[False])} and scaled "
+          f"K={list(FIRST_LIBS[True])} (compiled now: {len(built)} libraries); building beside "
+          f"the phases: " + "; ".join(", ".join(f"{k} {v}" for k, v in libs.items())
+                                       for libs in LATER_LIBS))
 
-    def late():
-        try:
-            kernels.build([13], (False,), (), probe=False, wide3_Ks=())
-        except BaseException as e:   # re-raised where phase 17 waits
-            raised.append(e)
+    def waiter(libs, build):
+        def wait():
+            t = time.time()
+            try:
+                out, _ = build.result()
+            except Exception as e:
+                raise PhaseError(f"the build of {libs} failed: {e}") from e
+            print(out.strip())
+            for K in libs.get("classic", ()):
+                kernels._library(K, False)
+            for rep in (kernels.WIDE, kernels.WIDE3):
+                for K in libs.get(rep, ()):
+                    kernels._library(K, rep)
+            if libs.get("probe"):
+                kernels._probe_library()
+            return time.time() - t
+        return wait
 
-    thread = threading.Thread(target=late)
-    thread.start()
-
-    def wait():
-        t = time.time()
-        thread.join()
-        if raised:
-            raise raised[0]
-        kernels._library(13, False)
-        return time.time() - t
-
-    return time.time() - t0, wait
+    return time.time() - t0, [waiter(libs, build) for libs, build in later]
 
 
 def exactness_phase(torch, mp, kernels, dev):
@@ -669,26 +831,49 @@ def _err(k, p):
     return float((k.limbs.double() - p.limbs.double()).abs().max())
 
 
-def kernel_phase(torch, mp, kernels, dev, scaled, K=None):
-    """Each kernel of one representation against its plain version at the
-    ladder solve's shapes: bit-identical limbs (and exponents), a spot
-    check against mpmath, kernel and plain times, the bound.  K: classic
-    limbs of every kernel, the factor's too (phase 17: K = 13), in place
-    of phase 4's K = 5 and Kf = 4."""
-    import mpmath
+def _kernel_inputs(scaled, K=None):
+    """kernel_phase's operands as float64 limb stacks, from its seed in its
+    order: (Kg, Kf, decades, mantissa bits, [(GEMM shape, a, b)], the SPD
+    blocks {57: A, 20: A} of the factor, the right-hand side of the solve
+    [120, 57, 15])."""
     import numpy as np
     rng = np.random.default_rng(7 if scaled else 4)
     if scaled:
         # the scaled ladder: 9 limbs (216 bits); factor 8 limbs as
         # initial_factor_limbs gives at Omega=1e4, gap 1e-20, 24-bit limbs
         Kg, Kf, decades, mant = 9, 8, 3.0, 24
-        phase("7. scaled kernels against plain versions (ladder shapes)")
     elif K:
         Kg, Kf, decades, mant = K, K, 0.0, 53
-        print(f"classic kernels at K={K} against plain versions (phase 4's shapes)")
     else:
         Kg, Kf, decades, mant = 5, 4, 0.0, 53
+    K64 = -(-(24 * Kg) // 53) + 1 if scaled else Kg
+    KF64 = -(-(24 * Kf) // 53) + 1 if scaled else Kf
+    gemms = [((B, M, Kd, N), _limbs(rng, (B, M, Kd), K64, decades=decades),
+              _limbs(rng, (B, Kd, N), K64, decades=decades)) for B, M, Kd, N in GEMM_SHAPES]
+    spd = {n: _limbs(rng, (120, n, n), KF64, spd=True, decades=decades) for n in (57, 20)}
+    return Kg, Kf, decades, mant, gemms, spd, _limbs(rng, (120, 57, 15), KF64, decades=decades)
+
+
+def kernel_phase(torch, mp, kernels, dev, scaled, K=None, background=None):
+    """Each kernel of one representation against its plain version at the
+    ladder solve's shapes: bit-identical limbs (and exponents), a spot
+    check against mpmath, kernel and plain times, the bound.  K: classic
+    limbs of every kernel, the factor's too (phase 17: K = 13), in place
+    of phase 4's K = 5 and Kf = 4.  `background`: a future of _kernel_task
+    (K alone), whose plain versions over plain_blocks(120) the kernels'
+    same blocks are held to, in place of the plain versions on the card."""
+    import mpmath
+    import numpy as np
+    if scaled:
+        phase("7. scaled kernels against plain versions (ladder shapes)")
+    elif K:
+        print(f"classic kernels at K={K} against plain versions (phase 4's shapes"
+              + (f"; the plain versions on the CPU over blocks {plain_blocks(120)})"
+                 if background else ")"))
+    else:
         phase("4. classic kernels against plain versions (ladder shapes)")
+    Kg, Kf, decades, mant, gemms, spd, rhs = _kernel_inputs(scaled, K)
+    plains = iter(background.result()) if background else None
 
     def C(x, K):
         if scaled:
@@ -700,10 +885,21 @@ def kernel_phase(torch, mp, kernels, dev, scaled, K=None):
         exp = o.exp.cpu().numpy() if scaled else np.zeros(limbs.shape[1:], np.int64)
         return lambda idx: _mpf(limbs[(slice(None),) + idx], exp[idx])
 
-    K64 = -(-(24 * Kg) // 53) + 1 if scaled else Kg
+    def plain(fn, out_k):
+        """(the kernel's output, the plain result, ms, label suffix): the
+        plain version on the card, or the blocks the background task ran
+        (the kernel's output cut to them)."""
+        if plains is None:
+            op, pms = _timed_once(torch, fn)
+            return out_k, op, pms, ""
+        parts, sec = next(plains)
+        blocks = plain_blocks(out_k.shape[0])
+        return (_blocks_of(out_k, blocks), _value(parts, dev), 1e3 * sec,
+                f" (plain: CPU, {len(blocks)} of {out_k.shape[0]} blocks)")
+
     rows = []
 
-    def compare(name, shape, out_k, out_p, spot, K, pms):
+    def compare(name, shape, out_k, out_p, spot, K):
         err = _err(out_k, out_p)
         check(err == 0.0, f"{name} {shape}: kernel differs from plain (max {err})")
         with mpmath.workprec(mant * K + 80):
@@ -712,12 +908,10 @@ def kernel_phase(torch, mp, kernels, dev, scaled, K=None):
               f"{name} {shape}: spot check vs mpmath {worst}")
         return err, float(worst)
 
-    for (B, M, Kd, N) in GEMM_SHAPES:
-        a = _limbs(rng, (B, M, Kd), K64, decades=decades)
-        b = _limbs(rng, (B, Kd, N), K64, decades=decades)
+    for (B, M, Kd, N), a, b in gemms:
         A, Bm = C(a, Kg), C(b, Kg)
         ok = kernels.mp_matmul(A, Bm)
-        op, pms = _timed_once(torch, lambda: kernels.mp_matmul_plain(A, Bm))
+        kk, op, pms, note = plain(lambda: kernels.mp_matmul_plain(A, Bm), ok)
         ha, hb, ho = host(A), host(Bm), host(ok)
 
         def spot(i, B=B, M=M, N=N, Kd=Kd, ha=ha, hb=hb, ho=ho):
@@ -726,19 +920,18 @@ def kernel_phase(torch, mp, kernels, dev, scaled, K=None):
             terms = [ha((bi, mi, t)) * hb((bi, t, ni)) for t in range(Kd)]
             return abs(ho((bi, mi, ni)) - mpmath.fsum(terms)) / \
                 mpmath.fsum(abs(t) for t in terms)
-        err, worst = compare("mp_matmul", (B, M, Kd, N), ok, op, spot, Kg, pms)
+        err, worst = compare("mp_matmul", (B, M, Kd, N), kk, op, spot, Kg)
         ms = _time_ms(torch, lambda: kernels.mp_matmul(A, Bm))
         bound, by = kernel_bound("mp_matmul", (B, M, Kd, N), Kg, scaled)
-        rows.append(("mp_matmul", f"[{B},{M},{Kd}]@[{B},{Kd},{N}] K={Kg}",
+        rows.append(("mp_matmul", f"[{B},{M},{Kd}]@[{B},{Kd},{N}] K={Kg}{note}",
                      err, worst, ms, pms, bound, by))
 
     chol = {}
     for n in (57, 20):
         B = 120
-        A = C(_limbs(rng, (B, n, n), -(-(24 * Kf) // 53) + 1 if scaled else Kf,
-                     spd=True, decades=decades), Kf)
+        A = C(spd[n], Kf)
         ok = kernels.mp_cholesky(A)
-        op, pms = _timed_once(torch, lambda: kernels.mp_cholesky_plain(A))
+        kk, op, pms, note = plain(lambda: kernels.mp_cholesky_plain(A), ok)
         chol[n] = ok
         ha, hL = host(A), host(ok)
 
@@ -749,22 +942,21 @@ def kernel_phase(torch, mp, kernels, dev, scaled, K=None):
             rec = mpmath.fsum(hL((bi, ii, t)) * hL((bi, jj, t)) for t in range(jj + 1))
             return abs(rec - ha((bi, ii, jj))) / \
                 mpmath.sqrt(abs(ha((bi, ii, ii)) * ha((bi, jj, jj))))
-        err, worst = compare("mp_cholesky", (B, n, n), ok, op, spot, Kf, pms)
+        err, worst = compare("mp_cholesky", (B, n, n), kk, op, spot, Kf)
         ms = _time_ms(torch, lambda: kernels.mp_cholesky(A))
         bound, by = kernel_bound("mp_cholesky", (B, n), Kf, scaled)
-        rows.append(("mp_cholesky", f"[{B},{n},{n}] K={Kf}", err, worst, ms, pms,
+        rows.append(("mp_cholesky", f"[{B},{n},{n}] K={Kf}{note}", err, worst, ms, pms,
                      bound, by))
 
     L = chol[57]
     B, n, m = 120, 57, 15
-    Bm = C(_limbs(rng, (B, n, m), -(-(24 * Kf) // 53) + 1 if scaled else Kf,
-                  decades=decades), Kf)
+    Bm = C(rhs, Kf)
     hL, hb = host(L), host(Bm)
     for lower in (True, False):
         T = L if lower else mp.MP(L.limbs.mT.contiguous(),
                                   None if L.exp is None else L.exp.mT.contiguous())
         ok = kernels.mp_solve_triangular(T, Bm, lower)
-        op, pms = _timed_once(torch, lambda: kernels.mp_solve_triangular_plain(T, Bm, lower))
+        kk, op, pms, note = plain(lambda: kernels.mp_solve_triangular_plain(T, Bm, lower), ok)
         hX = host(ok)
 
         def spot(i, lower=lower, hX=hX):
@@ -775,12 +967,11 @@ def kernel_phase(torch, mp, kernels, dev, scaled, K=None):
                      for t in ts]
             return abs(mpmath.fsum(terms) - hb((bi, ii, c))) / \
                 (mpmath.fsum(abs(t) for t in terms) + abs(hb((bi, ii, c))))
-        err, worst = compare("mp_solve_triangular", (B, n, m, lower), ok, op, spot,
-                             Kf, pms)
+        err, worst = compare("mp_solve_triangular", (B, n, m, lower), kk, op, spot, Kf)
         ms = _time_ms(torch, lambda: kernels.mp_solve_triangular(T, Bm, lower))
         bound, by = kernel_bound("mp_solve_triangular", (B, n, m), Kf, scaled)
         rows.append(("mp_solve_triangular",
-                     f"[{B},{n},{n}]\\[{B},{n},{m}] {'lower' if lower else 'upper'} K={Kf}",
+                     f"[{B},{n},{n}]\\[{B},{n},{m}] {'lower' if lower else 'upper'} K={Kf}{note}",
                      err, worst, ms, pms, bound, by))
 
     _print_rows(rows)
@@ -809,64 +1000,89 @@ def _wide_operand(rng, shape, Kg, decades, G=2):
         "cpu")
 
 
-def wide_kernel_phase(torch, kernels, dev):
+# phase 10's rows: the two-word GEMM at the ladder's GEMM shapes, Kg = 9 and
+# 5 (WIDE_RECORD_ROW, Kg = 9 [120,15,57]@[120,57,15], the one the kernels'
+# record reports, held to its plain version on the card over the whole batch),
+# then the wide path's factor at Kf = 9 (the scaled build on word 0) at S's,
+# the X blocks' and Q's shapes; each row's operands made from its own seed
+WIDE_GEMM_ROWS = tuple((Kg, shape) for Kg in (9, 5) for shape in GEMM_SHAPES)
+WIDE_RECORD_ROW = (9, GEMM_SHAPES[-1])
+WIDE_FACTOR_ROWS = ((120, 57), (120, 20), (1, 15))
+
+
+def wide_tasks(background):
+    """Phase 10's background tasks, in the order of its rows."""
+    gemms = [background.submit(_wide_task, "gemm", 2, Kg, (B, M, Kd), (B, Kd, N),
+                               10_000 + 100 * Kg + i,
+                               None if (Kg, shape) == WIDE_RECORD_ROW else plain_blocks(B))
+             for i, (Kg, shape) in enumerate(WIDE_GEMM_ROWS) for B, M, Kd, N in (shape,)]
+    factors = [background.submit(_factor_task, 9, B, n, 10_500 + n, plain_blocks(B))
+               for B, n in WIDE_FACTOR_ROWS]
+    return gemms, factors
+
+
+def wide_kernel_phase(torch, kernels, dev, tasks):
     """Phase 10: the wide GEMM against its plain version at the ladder's
     shapes, Kg = 9 and 5: bit-identical words, mpmath spot checks within
     2^-(48 Kg - 26), kernel ms (median of 5), plain ms (once), bound; then
     the scaled factor at Kf = 9, as the wide path calls it, the same way
-    (L L^T against A within phase 7's Kf = 8 bound, 2^-182)."""
+    (L L^T against A within phase 7's Kf = 8 bound, 2^-182).  `tasks`:
+    wide_tasks'; the plain versions of all rows but the record's ran there
+    on plain_blocks of the batch."""
     phase("10. wide GEMM and the wide path's factor against their plain versions "
           "(ladder shapes)")
     import mpmath
     import numpy as np
-    from sdpb_tpu_torch.ops import mpfloat as mp, mpwide
-    rng = np.random.default_rng(10)
+    gemms, factors = tasks
     rows = []
-    for Kg in (9, 5):
-        for (B, M, Kd, N) in GEMM_SHAPES:
-            a = _wide_operand(rng, (B, M, Kd), Kg, 2.0)
-            b = _wide_operand(rng, (B, Kd, N), Kg, 2.0)
-            on = lambda x: mpwide.MPW(mp.MP(w.limbs.to(dev), w.exp.to(dev)) for w in x.words)
-            A, Bm = on(a), on(b)
-            ok = kernels.mp_matmul_wide(A, Bm)
+    for (Kg, (B, M, Kd, N)), task in zip(WIDE_GEMM_ROWS, gemms):
+        pa, pb, pp, _, sec = task.result()
+        A, Bm = _value(pa, dev), _value(pb, dev)
+        ok = kernels.mp_matmul_wide(A, Bm)
+        if pp is None:
             op, pms = _timed_once(torch, lambda: kernels.mp_matmul_wide_plain(A, Bm))
-            err = max(_err(k, p) for k, p in zip(ok.words, op.words))
-            check(err == 0.0, f"mp_matmul_wide {(B, M, Kd, N)} Kg={Kg}: kernel differs "
-                              f"from plain (max {err})")
-            parts = [[(w.limbs.cpu().numpy(), w.exp.cpu().numpy()) for w in x.words]
-                     for x in (a, b, ok)]
+            kk, note = ok, ""
+        else:
+            blocks = plain_blocks(B)
+            kk, op, pms = _blocks_of(ok, blocks), _value(pp, dev), 1e3 * sec
+            note = f" (plain: CPU, {len(blocks)} of {B} blocks)"
+        err = max(_err(k, p) for k, p in zip(kk.words, op.words))
+        check(err == 0.0, f"mp_matmul_wide {(B, M, Kd, N)} Kg={Kg}: kernel differs "
+                          f"from plain (max {err})")
+        parts = [[(l.numpy(), e.numpy()) for l, e in pa], [(l.numpy(), e.numpy()) for l, e in pb],
+                 [(w.limbs.cpu().numpy(), w.exp.cpu().numpy()) for w in ok.words]]
 
-            def val(p, idx):
-                return mpmath.fsum(_mpf(l[(slice(None),) + idx], e[idx]) for l, e in p)
+        def val(p, idx):
+            return mpmath.fsum(_mpf(l[(slice(None),) + idx], e[idx]) for l, e in p)
 
-            with mpmath.workprec(48 * Kg + 120):
-                worst = mpmath.mpf(0)
-                for i in range(20):
-                    r = np.random.default_rng(300 + i)
-                    bi, mi, ni = r.integers(B), r.integers(M), r.integers(N)
-                    terms = [val(parts[0], (bi, mi, t)) * val(parts[1], (bi, t, ni))
-                             for t in range(Kd)]
-                    worst = max(worst, abs(val(parts[2], (bi, mi, ni)) - mpmath.fsum(terms))
-                                / mpmath.fsum(abs(t) for t in terms))
-                check(worst < mpmath.mpf(2) ** -(48 * Kg - 26),
-                      f"mp_matmul_wide Kg={Kg}: spot check vs mpmath {worst}")
-            ms = _time_ms(torch, lambda: kernels.mp_matmul_wide(A, Bm))
-            bound, by = kernel_bound("mp_matmul_wide", (B, M, Kd, N), Kg, True)
-            rows.append(("mp_matmul_wide", f"[{B},{M},{Kd}]@[{B},{Kd},{N}] Kg={Kg}",
-                         err, float(worst), ms, pms, bound, by))
+        with mpmath.workprec(48 * Kg + 120):
+            worst = mpmath.mpf(0)
+            for i in range(20):
+                r = np.random.default_rng(300 + i)
+                bi, mi, ni = r.integers(B), r.integers(M), r.integers(N)
+                terms = [val(parts[0], (bi, mi, t)) * val(parts[1], (bi, t, ni))
+                         for t in range(Kd)]
+                worst = max(worst, abs(val(parts[2], (bi, mi, ni)) - mpmath.fsum(terms))
+                            / mpmath.fsum(abs(t) for t in terms))
+            check(worst < mpmath.mpf(2) ** -(48 * Kg - 26),
+                  f"mp_matmul_wide Kg={Kg}: spot check vs mpmath {worst}")
+        ms = _time_ms(torch, lambda: kernels.mp_matmul_wide(A, Bm))
+        bound, by = kernel_bound("mp_matmul_wide", (B, M, Kd, N), Kg, True)
+        rows.append(("mp_matmul_wide", f"[{B},{M},{Kd}]@[{B},{Kd},{N}] Kg={Kg}{note}",
+                     err, float(worst), ms, pms, bound, by))
     # the wide path factors word 0 with the scaled build at Kf = 9: S and
     # the X/Y blocks over 120 blocks, Q alone
     Kf = 9
-    for B, n in ((120, 57), (120, 20), (1, 15)):
-        A = mp.from_parts(*mp.f64_limbs_to_scaled_parts(
-            _limbs(rng, (B, n, n), -(-(24 * Kf) // 53) + 1, spd=True, decades=3.0), Kf), dev)
+    for (B, n), task in zip(WIDE_FACTOR_ROWS, factors):
+        pa, pl, sec = task.result()
+        A = _value(pa, dev)
         ok = kernels.mp_cholesky(A)
-        op, pms = _timed_once(torch, lambda: kernels.mp_cholesky_plain(A))
-        err = _err(ok, op)
+        blocks = plain_blocks(B)
+        err = _err(_blocks_of(ok, blocks), _value(pl, dev))
         check(err == 0.0, f"mp_cholesky [{B},{n},{n}] Kf={Kf}: kernel differs from plain "
                           f"(max {err})")
         limbs, exp = ok.limbs.cpu().numpy(), ok.exp.cpu().numpy()
-        alimbs, aexp = A.limbs.cpu().numpy(), A.exp.cpu().numpy()
+        alimbs, aexp = pa[0][0].numpy(), pa[0][1].numpy()
         with mpmath.workprec(24 * Kf + 80):
             worst = mpmath.mpf(0)
             for i in range(20):
@@ -888,8 +1104,9 @@ def wide_kernel_phase(torch, kernels, dev):
                   f"mp_cholesky Kf={Kf}: spot check vs mpmath {worst}")
         ms = _time_ms(torch, lambda: kernels.mp_cholesky(A))
         bound, by = kernel_bound("mp_cholesky", (B, n), Kf, True)
-        rows.append(("mp_cholesky", f"[{B},{n},{n}] K={Kf} (wide path)", err, float(worst),
-                     ms, pms, bound, by))
+        rows.append(("mp_cholesky", f"[{B},{n},{n}] K={Kf} (wide path; plain: CPU, "
+                     f"{len(blocks)} of {B} blocks)", err, float(worst), ms, 1e3 * sec,
+                     bound, by))
     _print_rows(rows)
     return rows
 
@@ -1328,16 +1545,17 @@ def chunked_phase(torch, kernels, cli, dev, hosts):
     three representations, each against the host-loop run of the same
     command in phases 6, 9 and 11 (`hosts`: label -> its _ladder_run)."""
     phase(f"14. the chunked loop (CUDA-graph replays) against the host loop on the "
-          f"ladder: classic K=5 and scaled K32=9 ({LADDER_ITERATIONS} iterations), wide "
+          f"ladder: classic K=5 and scaled K32=9 ({LADDER_ITERATIONS} iterations, chunks of "
+          f"{LADDER_CHUNK}), wide "
           f"2x9 ({WIDE_ITERATIONS})")
     out = {}
     for label, its in (("classic", LADDER_ITERATIONS), ("scaled", LADDER_ITERATIONS),
                        ("wide", WIDE_ITERATIONS)):
         path = kernel_path(kernels, label)
-        # the CLI's chunks of 8; two words in one chunk of their iterations
-        # (a chunk of 8 would replay 6 more after the stop, ~3 s each)
+        # two words in one chunk of their iterations (a longer chunk would
+        # replay more after the stop, ~3 s each)
         chunked = _ladder_run(torch, kernels, cli, dev, list(LADDER_PREC[label]), its, path,
-                              chunk_iterations=its + 1 if label == "wide" else 0)
+                              chunk_iterations=its + 1 if label == "wide" else LADDER_CHUNK)
         out[label] = _loops_agree(torch, label, hosts[label], chunked, path)
     return out
 
@@ -1409,13 +1627,32 @@ def _redistilled(a, b) -> int:
     differ = np.zeros(pa[0][0].shape[1], bool)
     for (la, ea), (lb, eb) in zip(pa, pb):
         differ |= ~(np.all(la == lb, axis=0) & (ea == eb))
+    idx = np.nonzero(differ)[0]
 
     def value(ps, i):
         return sum((sum((Fraction(float(x)) for x in limbs[:, i]), Fraction(0))
                     * Fraction(2) ** int(exp[i]) for limbs, exp in ps), Fraction(0))
 
-    for i in np.nonzero(differ)[0]:
-        check(value(pa, i) == value(pb, i), f"element {i}: the checkpoint changed its value")
+    if idx.size:
+        # a - b exactly, as float64 rows (every limb times 2^exp; b's
+        # negated) distilled until no two overlap: all zero just where the
+        # values are equal (a wide state re-distils ~10^5 elements); an
+        # element left nonzero (or past float64's range) is held to the
+        # exact sum of its limbs
+        from sdpb_tpu_torch.ops.mpwide import _full_distill
+        rows, exact = [], np.ones(idx.size, bool)
+        with np.errstate(over="ignore", under="ignore"):
+            for ps, sign in ((pa, 1.0), (pb, -1.0)):
+                for limbs, exp in ps:
+                    e = np.maximum(exp[idx], -1500).astype(np.int64)
+                    for k in range(limbs.shape[0]):
+                        x = limbs[k, idx].astype(np.float64)
+                        r = np.ldexp(x, e)
+                        exact &= np.isfinite(r) & (np.ldexp(r, -e) == x)
+                        rows.append(sign * r)
+        zero = exact & np.all(np.stack(_full_distill(rows)) == 0, axis=0)
+        for i in idx[~zero]:
+            check(value(pa, i) == value(pb, i), f"element {i}: the checkpoint changed its value")
     return int(differ.sum())
 
 
@@ -1506,13 +1743,13 @@ def _resumes_agree(torch, mp, label, bits, from_file, from_memory, exact):
 def checkpoint_phase(torch, mp, kernels, cli, dev, wide_state, smi):
     """Phase 15: checkpoints, resume and the timing run through the CLI on
     the ladder.  (a) classic K=5 and scaled K32=9: a solve of
-    CHECKPOINT_ITERATIONS + 1 iterations (two chunks) with a checkpoint at
-    every chunk's start and the final one; its final state saved and
+    CHECKPOINT_ITERATIONS + 1 iterations (two chunks of CHECKPOINT_CHUNK)
+    with a checkpoint at every chunk's start and the final one; its final state saved and
     loaded on the card bit for bit, but for elements whose tail the
     arithmetic left above half an ulp, which come back re-distilled to the
     same value (checked exactly); then RESUME_ITERATIONS + 1 iterations
-    resumed from the file by the CLI (-i) and from the state in memory by
-    run_solver: every statistic, the reason, the count and the final state
+    (chunks of CHECKPOINT_CHUNK) resumed from the file by the CLI (-i) and
+    from the state in memory by run_solver: every statistic, the reason, the count and the final state
     identical when no element was re-distilled, else within
     _resumes_agree's tolerance; the path's kernels launched in the resumed
     CLI run.  (b) phase 14's final wide 2x9 state saved and loaded the same
@@ -1537,7 +1774,8 @@ def checkpoint_phase(torch, mp, kernels, cli, dev, wide_state, smi):
                     *LADDER_FLAGS, "--timingRun", "never", "--verbosity", "0"]
             first = cli.run(base + ["-o", str(tmp / f"{label}.out"), "-c", str(ck),
                                     "--maxIterations", str(CHECKPOINT_ITERATIONS),
-                                    "--checkpointInterval", "0"])
+                                    "--checkpointInterval", "0"],
+                            chunk_iterations=CHECKPOINT_CHUNK)
             meta = json.loads((ck / METADATA).read_text())
             last = len(first.chunks)        # a save at each chunk's start, then the final
             kept = sorted(p.name for p in ck.glob("checkpoint_*.npz"))
@@ -1555,10 +1793,12 @@ def checkpoint_phase(torch, mp, kernels, cli, dev, wide_state, smi):
             kernels.reset_launches()
             from_file = cli.run(base + ["-o", str(tmp / f"{label}.resumed"),
                                         "-c", str(tmp / f"{label}.ck2"), "-i", str(ck),
-                                        "--maxIterations", str(RESUME_ITERATIONS)])
+                                        "--maxIterations", str(RESUME_ITERATIONS)],
+                                chunk_iterations=CHECKPOINT_CHUNK)
             launches = dict(kernels.LAUNCHES)
             params.max_iterations = RESUME_ITERATIONS
-            from_memory = run_solver(sdp, params, verbosity=0, initial=first.state)
+            from_memory = run_solver(sdp, params, verbosity=0, initial=first.state,
+                                     chunk_iterations=CHECKPOINT_CHUNK)
             bits = 24 * K32 if K32 else 53 * K
             worst = _resumes_agree(torch, mp, label, bits, from_file, from_memory,
                                    exact=redistilled == 0)
@@ -1655,7 +1895,95 @@ def _outer_run(torch, kernels, ocli, label, argv):
             "capture_s": capture, "launches": launches}
 
 
-def tools_phase(torch, mp, kernels, cli, dev, smi):
+def outer_limits_runs(dev):
+    """outer_limits of phase 16 (the certificate, the first OUTER_BLOCKS
+    ladder blocks) on the card `dev`, each CLI call's results, rounds and
+    launches; a task of a pool of its own (outer_limits_start)."""
+    import torch
+    from sdpb_tpu_torch.cli import outer_limits as ocli, sdp2functions
+    from sdpb_tpu_torch.ops import kernels
+    dev = torch.device(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        return _outer_limits_in(torch, kernels, ocli, sdp2functions, dev, Path(tmp))
+
+
+def _outer_limits_in(torch, kernels, ocli, sdp2functions, dev, tmp):
+    outer = {}
+    points = tmp / "points1.json"
+    points.write_text('{"points": [["0.5", "1", "2"]]}')
+    t0 = time.time()
+    sdp2functions.main(["-i", str(CERTIFICATE_PMP), "-o", str(tmp / "cert_fn.json"),
+                        "--precision", "150"])
+    print(f"sdp2functions certificate: {time.time() - t0:.2f} s")
+    outer["certificate"] = _outer_run(torch, kernels, ocli, "certificate", [
+        "--functions", str(tmp / "cert_fn.json"), "--points", str(points),
+        "--out", str(tmp / "cert_out.json"), "--precision", "150",
+        "--dualityGapThreshold", OUTER_GAP["certificate"],
+        "--initialMatrixScalePrimal", "1e2", "--initialMatrixScaleDual", "1e2",
+        "--device", str(dev), *OUTER_FLAGS])
+
+    doc = json.loads(LADDER_PMP.read_text())
+    doc["PositiveMatrixWithPrefactorArray"] = \
+        doc["PositiveMatrixWithPrefactorArray"][:OUTER_BLOCKS]
+    (tmp / "ladder_pmp.json").write_text(json.dumps(doc))
+    t0 = time.time()
+    sdp2functions.main(["-i", str(tmp / "ladder_pmp.json"), "-o",
+                        str(tmp / "ladder_fn.json"), "--precision", "216"])
+    print(f"sdp2functions {OUTER_BLOCKS} ladder blocks at 216 bits: "
+          f"{time.time() - t0:.2f} s")
+    (tmp / "points.json").write_text(json.dumps({"points": [["0.5", "1", "2"]]
+                                                 * OUTER_BLOCKS}))
+    outer["ladder"] = _outer_run(torch, kernels, ocli, "ladder", [
+        "--functions", str(tmp / "ladder_fn.json"), "--points", str(tmp / "points.json"),
+        "--out", str(tmp / "ladder_out.json"), "--precision", "150",
+        "--dualityGapThreshold", OUTER_GAP["ladder"],
+        "--initialMatrixScalePrimal", "1e4", "--initialMatrixScaleDual", "1e4",
+        "--device", str(dev), *OUTER_FLAGS])
+    return outer
+
+
+def outer_limits_start(dev):
+    """outer_limits_runs in a pool of one process at normal priority (the
+    card's second context; its solves are small and its mesh search
+    host-bound), started with the phases it runs beside: (pool, future)."""
+    pool = _pool(1)
+    atexit.register(pool.shutdown, cancel_futures=True)
+    return pool, pool.submit(_captured, outer_limits_runs, str(dev))
+
+
+def outer_limits_result(outer_limits, smi):
+    """Wait for outer_limits_start's run, print what it printed and check
+    what it found against the references."""
+    import mpmath
+    pool, future = outer_limits
+    t0 = time.time()
+    try:
+        text, outer = future.result()
+    except Exception as e:
+        raise PhaseError(f"outer_limits failed: {e!r}") from e
+    finally:
+        pool.shutdown()
+    print(text.strip())
+    print(f"outer_limits (beside the phases since phase 15): waited {time.time() - t0:.1f} s")
+    with mpmath.workprec(300):
+        dy = abs(mpmath.mpf(outer["certificate"]["out"]["optimal"]) + mpmath.mpf(Y_OPT))
+    print(f"outer_limits certificate: |optimal + y_opt| = {mpmath.nstr(dy, 3)}")
+    check(dy < mpmath.mpf("1e-9"), f"outer_limits certificate optimum off by {dy}")
+    ref = json.loads(LADDER_OUTER.read_text())
+    got = outer["ladder"]["out"]
+    with mpmath.workprec(300):
+        d_opt = abs(mpmath.mpf(got["optimal"]) - mpmath.mpf(ref["optimal"]))
+        d_w = max(abs(mpmath.mpf(a) - mpmath.mpf(b)) for a, b in zip(got["y"], ref["y"]))
+    print(f"outer_limits ladder ({OUTER_BLOCKS} blocks) against the JAX package's "
+          f"out.json: optimal differs by {mpmath.nstr(d_opt, 3)}, weights by at most "
+          f"{mpmath.nstr(d_w, 3)}; card {smi}")
+    check(len(got["y"]) == len(ref["y"]) == OUTER_BLOCKS and d_opt < mpmath.mpf("1e-9")
+          and d_w < mpmath.mpf("1e-6"),
+          f"outer_limits ladder: optimal off by {d_opt}, weights by {d_w}")
+    return outer
+
+
+def tools_phase(torch, mp, kernels, cli, dev, smi, outer_limits):
     """Phase 16: approx_objective and outer_limits (with sdp2functions as
     its front end).  (a) The ladder solved to optimality (216 bits classic,
     Omega 1e4, gap 1e-20) with x, y, X and Y written; approx_objective of
@@ -1673,11 +2001,13 @@ def tools_phase(torch, mp, kernels, cli, dev, smi):
     1e-9, and on the first OUTER_BLOCKS ladder blocks (sdp2functions at 216
     bits, full N = 15 and degree 18; outer_limits at 150 bits) against the
     JAX package's out.json, each solve's host, solve and capture seconds
-    printed."""
+    printed: `outer_limits` (outer_limits_start's), run in a process of its
+    own beside phases 15 and 16 (its mesh search is the longest host-bound
+    stretch of the script)."""
     phase(f"16. approx_objective on the ladder (classic, scaled, wide) and outer_limits on "
           f"the certificate and {OUTER_BLOCKS} ladder blocks")
     import mpmath
-    from sdpb_tpu_torch.cli import approx_objective as acli, outer_limits as ocli, sdp2functions
+    from sdpb_tpu_torch.cli import approx_objective as acli
     from sdpb_tpu_torch.solver.solve import host_mpf
     from sdpb_tpu_torch.tools import approx_objective as tao
     out = {"approx": {}}
@@ -1734,53 +2064,6 @@ def tools_phase(torch, mp, kernels, cli, dev, smi):
             ms = _time_ms(torch, lambda: kernels.mp_cholesky(Af))
             print(f"factor of {name} {tuple(A.shape)} at Kf = {kf}: {ms:.3f} ms")
 
-        outer = {}
-        points = tmp / "points1.json"
-        points.write_text('{"points": [["0.5", "1", "2"]]}')
-        t0 = time.time()
-        sdp2functions.main(["-i", str(CERTIFICATE_PMP), "-o", str(tmp / "cert_fn.json"),
-                            "--precision", "150"])
-        print(f"sdp2functions certificate: {time.time() - t0:.2f} s")
-        outer["certificate"] = _outer_run(torch, kernels, ocli, "certificate", [
-            "--functions", str(tmp / "cert_fn.json"), "--points", str(points),
-            "--out", str(tmp / "cert_out.json"), "--precision", "150",
-            "--dualityGapThreshold", OUTER_GAP["certificate"],
-            "--initialMatrixScalePrimal", "1e2", "--initialMatrixScaleDual", "1e2",
-            "--device", str(dev), *OUTER_FLAGS])
-        with mpmath.workprec(300):
-            dy = abs(mpmath.mpf(outer["certificate"]["out"]["optimal"]) + mpmath.mpf(Y_OPT))
-        print(f"outer_limits certificate: |optimal + y_opt| = {mpmath.nstr(dy, 3)}")
-        check(dy < mpmath.mpf("1e-9"), f"outer_limits certificate optimum off by {dy}")
-
-        doc = json.loads(LADDER_PMP.read_text())
-        doc["PositiveMatrixWithPrefactorArray"] = \
-            doc["PositiveMatrixWithPrefactorArray"][:OUTER_BLOCKS]
-        (tmp / "ladder_pmp.json").write_text(json.dumps(doc))
-        t0 = time.time()
-        sdp2functions.main(["-i", str(tmp / "ladder_pmp.json"), "-o",
-                            str(tmp / "ladder_fn.json"), "--precision", "216"])
-        print(f"sdp2functions {OUTER_BLOCKS} ladder blocks at 216 bits: "
-              f"{time.time() - t0:.2f} s")
-        (tmp / "points.json").write_text(json.dumps({"points": [["0.5", "1", "2"]]
-                                                     * OUTER_BLOCKS}))
-        outer["ladder"] = _outer_run(torch, kernels, ocli, "ladder", [
-            "--functions", str(tmp / "ladder_fn.json"), "--points", str(tmp / "points.json"),
-            "--out", str(tmp / "ladder_out.json"), "--precision", "150",
-            "--dualityGapThreshold", OUTER_GAP["ladder"],
-            "--initialMatrixScalePrimal", "1e4", "--initialMatrixScaleDual", "1e4",
-            "--device", str(dev), *OUTER_FLAGS])
-        ref = json.loads(LADDER_OUTER.read_text())
-        got = outer["ladder"]["out"]
-        with mpmath.workprec(300):
-            d_opt = abs(mpmath.mpf(got["optimal"]) - mpmath.mpf(ref["optimal"]))
-            d_w = max(abs(mpmath.mpf(a) - mpmath.mpf(b)) for a, b in zip(got["y"], ref["y"]))
-        print(f"outer_limits ladder ({OUTER_BLOCKS} blocks) against the JAX package's "
-              f"out.json: optimal differs by {mpmath.nstr(d_opt, 3)}, weights by at most "
-              f"{mpmath.nstr(d_w, 3)}; card {smi}")
-        check(len(got["y"]) == len(ref["y"]) == 16 and d_opt < mpmath.mpf("1e-9")
-              and d_w < mpmath.mpf("1e-6"),
-              f"outer_limits ladder: optimal off by {d_opt}, weights by {d_w}")
-
         t0 = time.time()
         res2 = cli.run(["-s", str(LADDER_PERTURBED), "-o", str(tmp / "perturbed_out"),
                         "-c", str(tmp / "ck2"), "--timingRun", "never", "--device", str(dev),
@@ -1818,91 +2101,120 @@ def tools_phase(torch, mp, kernels, cli, dev, smi):
                   f"approx_objective {lb} against classic: {errs}")
         out.update(quad_err=float(quad), lin_err=float(lin), rel=rel, solve_s=solve_s,
                    resolve_s=resolve_s)
-        out["outer"] = outer
+    out["outer"] = outer_limits_result(outer_limits, smi)
     return out
 
 
-def wide3_kernel_rows(torch, kernels, dev):
-    """The three-word kernels against their plain versions at each Kg of
-    WIDE3_CHECK_KG: the GEMM at the ladder's two GEMM shapes (the smaller
-    one at WIDE3_SMALL_KG) and two edge shapes, the elementwise sum and
-    product at S's and the X blocks' shapes (the X blocks' at
-    WIDE3_SMALL_KG) and an edge shape.  Bit-identical words, mpmath
-    spot checks (the GEMM within 2^-(72 Kg - 26) of the sum of the terms'
-    magnitudes, sum and product within 2^-(72 Kg - 22) of the operands'
-    magnitudes and of the product), kernel ms (median of 5), plain ms
-    (once), the bound (word TwoSums less those of the needed work that the
-    plain run's tally found more than 24 Kg digits apart, which the
-    kernels skip alike)."""
+def wide3_rows(kernels):
+    """Phase 17's three-word kernel rows, in order: (name, op, Kg, shape a,
+    shape b, record).  At each Kg of WIDE3_CHECK_KG the GEMM at the
+    ladder's two GEMM shapes (the smaller one at WIDE3_SMALL_KG) and two
+    edge shapes of its tiling (one unpadded chunk of Kd < c terms and Kd =
+    c + 1: two chunks, the second padded; B = 1, 35 outputs: a ragged last
+    block of 32), then the sum and product at WIDE3_EW_SHAPES (the X
+    blocks' and the edge one at WIDE3_SMALL_KG).  `record`: the row the
+    kernels' record reports (Kg = 9: the GEMM's first shape, the sum's and
+    product's first), held to its plain version on the card over the whole
+    batch."""
+    rows = []
+    for Kg in WIDE3_CHECK_KG:
+        c = kernels.wide3_chunk(3 * Kg)
+        small = Kg in WIDE3_SMALL_KG
+        for i, (B, M, Kd, N) in enumerate(GEMM_SHAPES[:1 if small else None]
+                                          + ((1, 5, c - 1, 7), (1, 5, c + 1, 7))):
+            rows.append(("mp_matmul_wide3", "gemm", Kg, (B, M, Kd), (B, Kd, N),
+                         Kg == 9 and i == 0))
+        for i, shape in enumerate(WIDE3_EW_SHAPES[1 if small else 0:]):
+            for name, op in (("mp_wide3_add", "add"), ("mp_wide3_mul", "mul")):
+                rows.append((name, op, Kg, shape, shape, Kg == 9 and i == 0))
+    return rows
+
+
+def wide3_tasks(background, kernels):
+    """Phase 17's background tasks: each three-word row's operands (from its
+    own seed) and, but for the record rows, its plain version over
+    plain_blocks of its batch; then the classic K = 13 rows' plain
+    versions (_kernel_task)."""
+    rows = [background.submit(_wide_task, op, 3, Kg, ash, bsh, 17_000 + i,
+                              None if record else plain_blocks(ash[0]))
+            for i, (_, op, Kg, ash, bsh, record) in enumerate(wide3_rows(kernels))]
+    return rows, background.submit(_kernel_task, 13, plain_blocks(120))
+
+
+def wide3_kernel_rows(torch, kernels, dev, tasks):
+    """The three-word kernels against their plain versions (wide3_rows):
+    bit-identical words, mpmath spot checks (the GEMM within 2^-(72 Kg -
+    26) of the sum of the terms' magnitudes, sum and product within
+    2^-(72 Kg - 22) of the operands' magnitudes and of the product), kernel
+    ms (median of 5), plain ms (once: on the card over the whole batch for
+    the record rows, else on the CPU over plain_blocks), the bound (word
+    TwoSums less those of the needed work that the plain run's tally found
+    more than 24 Kg digits apart, which the kernels skip alike; counted on
+    the blocks the plain version ran, in proportion to the batch)."""
     import mpmath
     import numpy as np
-    from sdpb_tpu_torch.ops import mpfloat as mp, mpwide, mpwide_kernel as wk
-    rng = np.random.default_rng(17)
+    from sdpb_tpu_torch.ops import mpwide_kernel as wk
     rows = []
-
-    def held(name, label, shape, Kg, a, b, kern, plain, spot, slack):
-        on = lambda x: mpwide.MPW(mp.MP(w.limbs.to(dev), w.exp.to(dev)) for w in x.words)
-        A, Bm = on(a), on(b)
+    for (name, op, Kg, ash, bsh, record), task in zip(wide3_rows(kernels), tasks):
+        pa, pb, pp, skipped, sec = task.result()
+        A, Bm = _value(pa, dev), _value(pb, dev)
+        kern = kernels.mp_matmul_wide if op == "gemm" else getattr(kernels, name)
         ok = kern(A, Bm)
-        tally = wk.SkipTally()
-        op, pms = _timed_once(torch, lambda: plain(A, Bm, tally))
-        err = max(_err(k, p) for k, p in zip(ok.words, op.words))
+        B = ash[0]
+        if record:
+            tally = wk.SkipTally()
+            plain = (lambda: kernels.mp_matmul_wide3_plain(
+                *kernels._canon_wide_pair(A, Bm)[:2], tally)) if op == "gemm" else \
+                (lambda: getattr(kernels, name + "_plain")(A, Bm, tally))
+            op_out, pms = _timed_once(torch, plain)
+            kk, skipped, note = ok, tally.count, " (plain: the card, every block)"
+        else:
+            blocks = plain_blocks(B)
+            kk, op_out, pms = _blocks_of(ok, blocks), _value(pp, dev), 1e3 * sec
+            skipped = round(skipped * B / len(blocks))
+            note = f" (plain: CPU, {len(blocks)} of {B} blocks)"
+        label = (f"[{B},{ash[1]},{ash[2]}]@[{B},{bsh[1]},{bsh[2]}] Kg={Kg}" if op == "gemm"
+                 else f"[{','.join(map(str, ash))}] Kg={Kg}")
+        err = max(_err(k, p) for k, p in zip(kk.words, op_out.words))
         check(err == 0.0, f"{name} {label}: kernel differs from plain (max {err})")
-        parts = [[(w.limbs.cpu().numpy(), w.exp.cpu().numpy()) for w in x.words]
-                 for x in (a, b, ok)]
+        parts = [[(l.numpy(), e.numpy()) for l, e in pa], [(l.numpy(), e.numpy()) for l, e in pb],
+                 [(w.limbs.cpu().numpy(), w.exp.cpu().numpy()) for w in ok.words]]
 
         def val(i, idx):
             return mpmath.fsum(_mpf(l[(slice(None),) + idx], e[idx]) for l, e in parts[i])
 
-        with mpmath.workprec(72 * Kg + 120):
-            worst = max(spot(val, i) for i in range(20))
-            check(worst < mpmath.mpf(2) ** -(72 * Kg - slack),
-                  f"{name} {label}: spot check vs mpmath {worst}")
-        ms = _time_ms(torch, lambda: kern(A, Bm))
-        bound, by = kernel_bound(name, shape, Kg, True, tally.count)
-        rows.append((name, label, err, float(worst), ms, pms, bound, by))
-        print(f"{name} {label}: {tally.count} word TwoSums of the needed work left as "
-              f"they were (words more than {24 * Kg} digits apart)")
+        if op == "gemm":
+            M, Kd, N = ash[1], ash[2], bsh[2]
 
-    for Kg in WIDE3_CHECK_KG:
-        # the ladder's shapes, then edge shapes of the kernel's tiling: one
-        # unpadded chunk of Kd < c terms and Kd = c + 1 (two chunks, the
-        # second padded), B = 1, 35 outputs (a ragged last block of 32)
-        c = kernels.wide3_chunk(3 * Kg)
-        small = Kg in WIDE3_SMALL_KG
-        for (B, M, Kd, N) in GEMM_SHAPES[:1 if small else None] + ((1, 5, c - 1, 7),
-                                                                 (1, 5, c + 1, 7)):
-            a = _wide_operand(rng, (B, M, Kd), Kg, 2.0, G=3)
-            b = _wide_operand(rng, (B, Kd, N), Kg, 2.0, G=3)
-
-            def spot(val, i, B=B, M=M, Kd=Kd, N=N):
+            def spot(i):
                 r = np.random.default_rng(500 + i)
                 bi, mi, ni = r.integers(B), r.integers(M), r.integers(N)
                 terms = [val(0, (bi, mi, t)) * val(1, (bi, t, ni)) for t in range(Kd)]
                 return abs(val(2, (bi, mi, ni)) - mpmath.fsum(terms)) / \
                     mpmath.fsum(abs(t) for t in terms)
+            slack, shape = 26, (B, M, Kd, N)
+        else:
+            def spot(i):
+                r = np.random.default_rng(600 + i)
+                idx = tuple(int(r.integers(d)) for d in ash)
+                x, y = val(0, idx), val(1, idx)
+                return abs(val(2, idx) - (x + y if op == "add" else x * y)) / \
+                    (abs(x) + abs(y) if op == "add" else abs(x * y))
+            slack, shape = 22, ash
 
-            held("mp_matmul_wide3", f"[{B},{M},{Kd}]@[{B},{Kd},{N}] Kg={Kg}", (B, M, Kd, N),
-                 Kg, a, b, kernels.mp_matmul_wide,
-                 lambda A, Bm, t: kernels.mp_matmul_wide3_plain(
-                     *kernels._canon_wide_pair(A, Bm)[:2], t), spot, 26)
-        for shape in WIDE3_EW_SHAPES[1 if small else 0:]:
-            a = _wide_operand(rng, shape, Kg, 2.0, G=3)
-            b = _wide_operand(rng, shape, Kg, 2.0, G=3)
-            for name, add in (("mp_wide3_add", True), ("mp_wide3_mul", False)):
-                def spot(val, i, shape=shape, add=add):
-                    r = np.random.default_rng(600 + i)
-                    idx = tuple(int(r.integers(d)) for d in shape)
-                    x, y = val(0, idx), val(1, idx)
-                    return abs(val(2, idx) - (x + y if add else x * y)) / \
-                        (abs(x) + abs(y) if add else abs(x * y))
-
-                held(name, f"[{','.join(map(str, shape))}] Kg={Kg}", shape, Kg, a, b,
-                     getattr(kernels, name), getattr(kernels, name + "_plain"), spot, 22)
+        with mpmath.workprec(72 * Kg + 120):
+            worst = max(spot(i) for i in range(20))
+            check(worst < mpmath.mpf(2) ** -(72 * Kg - slack),
+                  f"{name} {label}: spot check vs mpmath {worst}")
+        ms = _time_ms(torch, lambda: kern(A, Bm))
+        bound, by = kernel_bound(name, shape, Kg, True, skipped)
+        rows.append((name, label + note, err, float(worst), ms, pms, bound, by, record))
+        print(f"{name} {label}: {skipped} word TwoSums of the needed work left as they "
+              f"were (words more than {24 * Kg} digits apart)")
     return rows
 
 
-def wide3_phase(torch, mp, kernels, cli, dev):
+def wide3_phase(torch, mp, kernels, cli, dev, tasks):
     """Phase 17: three words (--precision 640, 3 x 9 float32 limbs) and
     classic K = 13.  (a) the three-word GEMM and (b) the classic K = 13
     GEMM, factor and solves against their plain versions; (c) the
@@ -1911,16 +2223,18 @@ def wide3_phase(torch, mp, kernels, cli, dev):
     K = 13, WIDE3_ITERATIONS + 1 iterations each in the host loop:
     identical steps, at least WIDE3_DIGITS shared digits; (e) the
     three-word ladder in the chunked loop in chunks of
-    WIDE3_CHUNK against (d)'s host loop run, identical."""
+    WIDE3_CHUNK against (d)'s host loop run, identical.  `tasks`:
+    wide3_tasks'."""
     phase(f"17. three words (--precision 640, 3 x 9 float32 limbs) and classic K=13: "
           f"kernels, the certificate, the ladder ({WIDE3_ITERATIONS + 1} iterations), the "
           f"chunked loop in chunks of {WIDE3_CHUNK}")
     t0 = time.time()
-    rows = wide3_kernel_rows(torch, kernels, dev)
-    _print_rows(rows)
-    crows = kernel_phase(torch, mp, kernels, dev, scaled=False, K=13)
+    rows = wide3_kernel_rows(torch, kernels, dev, tasks[0])
+    _print_rows([r[:8] for r in rows])
+    crows = kernel_phase(torch, mp, kernels, dev, scaled=False, K=13, background=tasks[1])
     for name, shape, _, _, ms, _, bound, _ in crows:
         if name == "mp_matmul":
+            shape = shape.split(" (")[0]
             print(f"classic K=13 GEMM {shape}: {ms:.3f} ms, {bound / ms:.1%} of its bound "
                   f"({bound:.4f} ms)")
     print(f"17a-b kernels: {time.time() - t0:.1f} s")
@@ -2085,7 +2399,12 @@ def main(argv=None):
         print(f"\ndiagnostics: {time.time() - t_start:.1f} s")
         print(smi)
         return 0
-    build_s, wait_for_k13 = build_phase(kernels)
+    # the background pool: the later builds, then the kernel phases' CPU
+    # work (operands, plain versions on a few blocks)
+    background = _pool(BACKGROUND_WORKERS + len(LATER_LIBS), low=True)
+    atexit.register(background.shutdown, cancel_futures=True)
+    build_s, (wait_mid, wait_late) = build_phase(kernels, background)
+    tasks10, tasks17 = wide_tasks(background), wide3_tasks(background, kernels)
     exactness_phase(torch, mp, kernels, dev)
     rows = kernel_phase(torch, mp, kernels, dev, scaled=False)
     cert = certificate_phase(torch, kernels, cli, dev, scaled=False)
@@ -2093,18 +2412,20 @@ def main(argv=None):
     srows = kernel_phase(torch, mp, kernels, dev, scaled=True)
     scert = certificate_phase(torch, kernels, cli, dev, scaled=True)
     sladder = ladder_phase(torch, kernels, cli, dev, scaled=True, classic=ladder)
-    wrows = wide_kernel_phase(torch, kernels, dev)
+    print(f"\nwaited {wait_mid():.1f} s for the libraries of phases 10-16")
+    wrows = wide_kernel_phase(torch, kernels, dev, tasks10)
     wladder = wide_ladder_phase(torch, kernels, cli, dev)
     prows = probe_phase(torch, kernels, dev, smi)
     profiles, probe_launches = profile_phase(torch, kernels, cli, dev, {"wide": wladder})
     chunked = chunked_phase(torch, kernels, cli, dev,
                             {"classic": ladder, "scaled": sladder, "wide": wladder})
+    outer_limits = outer_limits_start(dev)
     checkpoints = checkpoint_phase(torch, mp, kernels, cli, dev,
                                    chunked["wide"]["chunked"]["result"].state, smi)
-    tools = tools_phase(torch, mp, kernels, cli, dev, smi)
-    waited = wait_for_k13()
-    print(f"waited {waited:.1f} s for the classic K=13 libraries")
-    wide3 = wide3_phase(torch, mp, kernels, cli, dev)
+    tools = tools_phase(torch, mp, kernels, cli, dev, smi, outer_limits)
+    print(f"\nwaited {wait_late():.1f} s for the libraries of phase 17")
+    wide3 = wide3_phase(torch, mp, kernels, cli, dev, tasks17)
+    background.shutdown()
     check("jax" not in sys.modules, "the port imported jax")
     check(not any(m == "sdpb_tpu" or m.startswith("sdpb_tpu.") for m in sys.modules),
           "the port imported the JAX package")
@@ -2124,7 +2445,8 @@ def main(argv=None):
                            "bound_ms": first[6], "bound_by": first[7],
                            "library_ms": None})
     name, source, replaces = WIDE_KERNEL
-    first = [r for r in wrows if r[1].endswith("Kg=9")][-1]
+    # the GEMM rows come first, in WIDE_GEMM_ROWS' order
+    first = wrows[WIDE_GEMM_ROWS.index(WIDE_RECORD_ROW)]
     record.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                    "launches": chunked["wide"]["chunked"]["launches"][name],
                    "max_abs_err": max(r[2] for r in wrows if r[0] == name), "ms": first[4],
@@ -2134,7 +2456,7 @@ def main(argv=None):
     # chunked ladder run (the main path at --precision 640)
     for name, (source, replaces) in WIDE3_KERNELS.items():
         mine = [r for r in wide3["rows"] if r[0] == name]
-        first = [r for r in mine if r[1].endswith("Kg=9")][0]
+        first = [r for r in mine if r[8]][0]
         record.append({"name": name, "route": "cuda", "source": source,
                        "replaces": replaces,
                        "launches": wide3["loops"]["chunked"]["launches"][name],

@@ -24,7 +24,8 @@ kernels at Kg = 9 (--precision 640), it reports:
 The kernels' times and their bits against the plain versions are
 chip_smoke.py's (phases 4, 7, 10) and tools/kernel_times.py's.
 The scaled K = 8 and classic K = 12, 13 SASS listings go to --out (default
-build/kernel_report), gzipped.  The last line is one JSON object
+build/kernel_report), gzipped.  `--wide3-only` reports the three-word
+kernels alone (no classic or scaled build, no latency probe).  The last line is one JSON object
 with all of it and the card's name and power limit.
 """
 import argparse
@@ -132,7 +133,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--root", default=str(HERE))
     p.add_argument("--out", default=str(HERE / "build" / "kernel_report"))
+    p.add_argument("--wide3-only", action="store_true")
     args = p.parse_args(argv)
+    builds = () if args.wide3_only else BUILDS
     root = Path(args.root).resolve()
     outdir = Path(args.out)
     outdir.mkdir(parents=True, exist_ok=True)
@@ -171,13 +174,13 @@ def main(argv=None) -> int:
                 raise RuntimeError(f"{' '.join(cmd)}:\n{proc.stdout}{proc.stderr}")
             return job, _ptxas_info(proc.stdout + proc.stderr)
 
-        jobs = [(src, s, K) for src in (*kernels.SOURCES, "probe") for s, K in BUILDS]
+        jobs = [(src, s, K) for src in (*kernels.SOURCES, "probe") for s, K in builds]
         jobs += [(src, kernels.WIDE3, K) for src in kernels.WIDE3_SOURCES for K in WIDE3_BUILDS]
         with ThreadPoolExecutor(len(jobs)) as pool:
             for (src, s, K), info in pool.map(compile_one, jobs):
                 report["ptxas"].setdefault(_tag(s, K), {}).update(info)
         for rep in (False, True):
-            kernels.build([K for s, K in BUILDS if s == rep], [rep], [], probe=False,
+            kernels.build([K for s, K in builds if s == rep], [rep], [], probe=False,
                           wide3_Ks=WIDE3_BUILDS)
         print(f"compiled in {time.time() - t0:.1f} s", flush=True)
         for K in WIDE3_BUILDS:
@@ -190,7 +193,7 @@ def main(argv=None) -> int:
             for name, info in sorted(report["ptxas"][tag].items()):
                 print(f"{tag} {name}: ptxas {info}; SASS {report['sass'][tag].get(name)}",
                       flush=True)
-        for s, K in BUILDS:
+        for s, K in builds:
             tag = _tag(s, K)
             for what, lib in (("kernels", kernels.library_path(K, s)),
                               ("probe", tmp / f"probe_k{K}{int(s)}.so")):

@@ -821,6 +821,39 @@ def test_wide3_elementwise_kernels_match_plain_versions(cuda, three_words, Kg):
     assert _same_wide(tmp.sqrt(_on(pos, cuda)), tmp.sqrt(pos))
 
 
+@pytest.mark.parametrize("Kg", [7, 8, 9])
+def test_wide3_sum_kernel_on_broadcast_and_ragged_operands(cuda, three_words, Kg):
+    """The three-word sum kernel bit for bit with mp_wide3_add_plain on the
+    card and on the CPU: a scalar with a matrix, a row and a column with a matrix, a batch
+    of matrices with one matrix, and the ragged shapes 1, 35 and 129
+    elements (blocks of 128 threads); operands spread over 2^-40..2^40,
+    with exact cancellations and zero words among them."""
+    rng = np.random.default_rng(830 + Kg)
+    cases = (((), (5, 7)), ((1, 7), (5, 7)), ((5, 1), (5, 7)), ((3, 4, 6), (4, 6)),
+             ((1,), (1,)), ((35,), (35,)), ((129,), (129,)))
+    for ash, bsh in cases:
+        a, b = _wide3(rng, ash, Kg, spread=40), _wide3(rng, bsh, Kg, spread=40)
+        if ash == bsh:
+            # exact cancellation in every other element, a zero middle word
+            # in every third
+            from sdpb_tpu_torch.ops import mpwide as tmw
+            words = []
+            for g, (wa, wb) in enumerate(zip(a.words, b.words)):
+                limbs, exp = wb.limbs.clone(), wb.exp.clone()
+                limbs[:, ::2], exp[::2] = -wa.limbs[:, ::2], wa.exp[::2]
+                if g == 1:
+                    limbs[:, ::3], exp[::3] = 0.0, tmp.EXP_ZERO
+                words.append(tmp.MP(limbs, exp))
+            b = tmw.MPW(words)
+        A, Bv = _on(a, cuda), _on(b, cuda)
+        for x, y in ((A, Bv), (Bv, A)):
+            tk.reset_launches()
+            out = tk.mp_wide3_add(x, y)
+            assert tk.LAUNCHES["mp_wide3_add"] == 1
+            assert _same_wide(out, tk.mp_wide3_add_plain(x, y)), (ash, bsh)
+        assert _same_wide(tk.mp_wide3_add(A, Bv), tk.mp_wide3_add(a, b)), (ash, bsh)
+
+
 def test_wide3_elementwise_kernels_refuse_two_words(cuda):
     """A two-word operand raises in the three-word kernels' wrappers."""
     rng = np.random.default_rng(810)

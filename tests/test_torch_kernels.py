@@ -333,6 +333,81 @@ def test_shape_tally_counts_the_factor():
         "mp_cholesky scaled K=8 [120, 57, 57]"
 
 
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 6])
+def test_plain_blocks_take_first_last_and_interior_blocks(n):
+    """chip_smoke.plain_blocks, the blocks of a batch whose plain version
+    runs in the background: the first and the last, n - 2 distinct ones
+    between them spread over the batch, sorted; every block of a batch of
+    n or fewer."""
+    cs = _chip_smoke()
+    assert cs.plain_blocks(120) == [0, 40, 79, 119]
+    for B in range(1, 300):
+        got = cs.plain_blocks(B, n)
+        if B <= n:
+            assert got == list(range(B))
+            continue
+        assert len(got) == n and got == sorted(set(got))
+        assert got[0] == 0 and got[-1] == B - 1
+        # each gap within one of the even spacing (B - 1) / (n - 1)
+        gaps = np.diff(got)
+        assert gaps.min() >= np.floor((B - 1) / (n - 1)) and \
+            gaps.max() <= np.ceil((B - 1) / (n - 1))
+
+
+def test_background_plain_blocks_are_the_full_batch_blocks():
+    """chip_smoke.py's background tasks run a plain version on some blocks
+    of a batch and hold the kernel's same blocks to it: every plain version
+    works block by block, so those blocks are the full batch's.  The
+    classic GEMM, factor and upper solve (_kernel_task's rows at K = 2,
+    kernel_phase's operands cut to 20 blocks of n = 6) and a three-word sum
+    and GEMM (_wide_task, Kg = 3)."""
+    from sdpb_tpu_torch.ops import mpwide as tmw
+    cs = _chip_smoke()
+    full = cs._kernel_inputs
+
+    def cut(scaled, K=None):
+        Kg, Kf, decades, mant, gemms, spd, rhs = full(scaled, K)
+        gemms = [(s, a[:, :20, :2, :3], b[:, :20, :3, :2]) for s, a, b in gemms]
+        return (Kg, Kf, decades, mant, gemms,
+                {n: A[:, :20, :6, :6] for n, A in spd.items()}, rhs[:, :20, :6, :3])
+
+    cs._kernel_inputs = cut
+    blocks = [0, 3, 19]
+    out = cs._kernel_task(2, blocks)
+    _, _, _, _, gemms, spd, rhs = cut(False, 2)
+    G = tk.mp_matmul_plain(tmp.MP(torch.as_tensor(gemms[1][1])),
+                           tmp.MP(torch.as_tensor(gemms[1][2])))
+    assert torch.equal(cs._value(out[1][0]).limbs, cs._blocks_of(G, blocks).limbs)
+    L = tk.mp_cholesky_plain(tmp.MP(torch.as_tensor(spd[20])))
+    assert torch.equal(cs._value(out[3][0]).limbs, cs._blocks_of(L, blocks).limbs)
+    L = tk.mp_cholesky_plain(tmp.MP(torch.as_tensor(spd[57])))
+    X = tk.mp_solve_triangular_plain(tmp.MP(L.limbs.mT.contiguous()),
+                                     tmp.MP(torch.as_tensor(rhs)), False)
+    assert torch.equal(cs._value(out[5][0]).limbs, cs._blocks_of(X, blocks).limbs)
+    wide_config = tmw.wide_config
+    tmw.wide_config = lambda K: (3, -(-K // 3))
+    try:
+        for op, ash, bsh in (("add", (6, 2, 3), (6, 2, 3)), ("gemm", (6, 2, 5), (6, 5, 3))):
+            a, b, got, _, _ = cs._wide_task(op, 3, 3, ash, bsh, 9, [1, 5])
+            a, b = cs._value(a), cs._value(b)
+            full_out = tk.mp_wide3_add_plain(a, b) if op == "add" else tk.mp_matmul_wide(a, b)
+            want = cs._blocks_of(full_out, [1, 5])
+            assert all(torch.equal(x.limbs, y.limbs) and torch.equal(x.exp, y.exp)
+                       for x, y in zip(cs._value(got).words, want.words))
+    finally:
+        tmw.wide_config = wide_config
+
+
 def _ml(parts, K):
     """Scaled parts as a list-form value of the JAX package (mplist)."""
     return [jnp.asarray(parts[0][k]) for k in range(K)], jnp.asarray(parts[1])
@@ -492,6 +567,39 @@ def test_kernel_product_schedule_is_the_plain_product(K):
     a, b = T(a), T(b)
     got, want = _kernel_product(a, b), tmp.kmul(a, b)
     assert torch.equal(got.limbs.view(torch.int64), want.limbs.view(torch.int64))
+
+
+def test_sum_need_counts_the_plain_sums_word_two_sums():
+    """tools/kernel_times.py's sum_need (--ladder-sums): over the first
+    `elements` elements of each sum, broadcast operands counted at the
+    broadcast shape, the word TwoSums with work per element are the 20 of
+    renormalize<6> less those the plain version's SkipTally counts as left
+    as they were; per warp (the last one partial) a walk of each element's
+    own list runs no more than renormalize's order."""
+    from sdpb_tpu_torch.ops import mpwide_kernel as wk
+    from sdpb_tpu_torch.tools import kernel_times as kt
+    cs = _chip_smoke()
+    rng = np.random.default_rng(41)
+    a, b = (cs._wide_operand(rng, (2, 5, 7), 9, 2.0, G=3) for _ in range(2))
+    c = cs._wide_operand(rng, (7,), 9, 2.0, G=3)
+    out = kt.sum_need(torch, tk, [(a, b), (a, c)], elements=40)
+    skipped = 0
+    for x, y in ((a, b), (a, c)):
+        words = [[(l.reshape(l.shape[0], -1)[:, :40], e.reshape(-1)[:40])
+                  for l, e in tk._wide3_words(v, (2, 5, 7))] for v in (x, y)]
+        tally = wk.SkipTally()
+        wk.wadd_g_c(*words, 9, tally.skip())
+        skipped += tally.count
+    assert out["elements_sampled"] == 80 and len(out["need_by_site"]) == 20
+    assert out["two_sums_per_element"] == pytest.approx(20 - skipped / 80)
+    assert 0 < out["two_sums_per_warp_walk"] <= out["two_sums_per_warp_renormalize"] <= 20
+
+
+def test_captured_returns_what_a_task_printed():
+    """chip_smoke._captured, the wrapper of a pool task whose prints the
+    phase that waits for it shows: (what it printed, its result)."""
+    cs = _chip_smoke()
+    assert cs._captured(lambda x: print("built", x) or x + 1, 2) == ("built 2\n", 3)
 
 
 @pytest.mark.parametrize("K", [10, 11, 12, 13])
