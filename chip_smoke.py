@@ -125,7 +125,30 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      + 1 iterations each in the host loop: identical steps, the digits the
      objectives share printed and held to WIDE3_DIGITS; the three-word
      ladder in the chunked loop in chunks of WIDE3_CHUNK against that host
-     loop run, identical, with the graphs' sizes and a replay's device ms.
+     loop run, identical, with the graphs' sizes and a replay's device ms;
+ 18. a bootstrap study on the port alone, its host work (conversions,
+     generated PMPs, plain versions) in the background pool from the
+     start: (a) the port's sdp2input of fixtures/dim2_certificate/pmp.json
+     at 400 bits (json) gives every entry of fixtures/dim2_certificate/
+     sdp.zip, and the ladder's first two PMP blocks of fixtures/
+     ising_ladder_120/pmp.json at 256 bits (bin) its objectives and first
+     two blocks' files, byte for byte (control.json's command aside);
+     (b) the toy PMP (TOY_PMP) through sdp2input at 512 bits, solved on the
+     card through the CLI (classic, 96 bits, thresholds 1e-15), then the
+     port's spectrum: one zero within 1e-5 of the independent x0;
+     (c) two gen_pmp --solvable problems joined by an .nsv list (STUDY_GEN:
+     S blocks of 150 and 57, 25 and 19 points) through sdp2input at 216
+     bits, solved classic K = 5 in the chunked loop (16 iterations, two
+     chunks of 8): finite statistics, positive steps, falling mu, the
+     GEMM, factor and solve launched, s/replay, capture seconds, peak
+     memory, the wrapper calls by shape; and the kernels as that run
+     calls them at the S shape of 150, the classic GEMM
+     [4,15,150]@[4,150,15] at K = 5, the factor [4,150,150] and the lower
+     solve [4,150,150]\\[4,150,15] at its factor's Kf = 4 (STUDY_KF),
+     held bit for bit to their plain versions (plain_blocks(4): every
+     block, on the CPU in the background), with times, bounds and shares
+     of the bound.  Each
+     conversion's seconds are host seconds of the card's machine.
 Every CLI call writes its checkpoints into a temporary directory (-c), and
 the ladder phases but 15 pass --timingRun never.  Each SDP file is
 parsed once per limb count, those the phases read ahead in worker
@@ -314,6 +337,48 @@ LADDER_PREC = {"classic": ("--precision", "216"),
 SDP_READS = ((LADDER, 5), (LADDER, 6), (LADDER, 9), (LADDER, 8), (LADDER, 4),
              (LADDER_PERTURBED, 6), (LADDER_PERTURBED, 9), (LADDER_PERTURBED, 5),
              (LADDER, 14), (LADDER, 13))
+
+
+# phase 18, a bootstrap study on the port alone.  18b: the toy PMP of
+# tests/test_spectrum.py (one 1x1 block, base 1/e; maximize -y subject to
+# 1 + x^4 + y (x^2 + x^4 / 12) >= 0), whose optimal functional has a
+# double root at STUDY_X0, computed independently in mpmath (the JAX
+# package's test value; tolerance 1e-5 as there)
+TOY_PMP = {
+    "objective": ["0", "-1"],
+    "normalization": ["1", "0"],
+    "PositiveMatrixWithPrefactorArray": [
+        {"DampedRational": {
+            "constant": "1",
+            "base": "0.36787944117144232159552377016146086744581113103177",
+            "poles": []},
+         "polynomials": [[[["1", "0", "0", "0", "1"],
+                           ["0", "0", "1", "0",
+                            "0.083333333333333333333333333333333333333333"]]]]}
+    ],
+}
+STUDY_X0, STUDY_X0_TOL = "1.042496785718158120984007", "1e-5"
+TOY_FLAGS = ("--precision", "96", "--dualityGapThreshold", "1e-15",
+             "--primalErrorThreshold", "1e-15", "--dualErrorThreshold", "1e-15",
+             "--initialMatrixScalePrimal", "1e2", "--initialMatrixScaleDual", "1e2",
+             "--maxIterations", "250", "--verbosity", "0", "--writeSolution", "x,y")
+# 18c: two problems of the port's gen_pmp --solvable joined by an .nsv list
+# (file, seed, blocks, dim, dual, degree, poles): 4 blocks of 25 points and
+# 3x3 matrices (S 150 x 150) and 4 of 19 points and 2x2 (S 57 x 57), N =
+# 15; converted at STUDY_PREC bits and solved classic (K = 5) in the
+# chunked loop, STUDY_ITERATIONS + 1 iterations in chunks of STUDY_CHUNK
+STUDY_GEN = (("gen_1.json", 1, 4, 3, 15, 24, 8), ("gen_2.json", 2, 4, 2, 15, 18, 8))
+STUDY_PREC, STUDY_ITERATIONS, STUDY_CHUNK = "216", 15, 8
+# the kernels 18c launches at its largest shapes, held to their plain
+# versions (on plain_blocks(STUDY_B), in a background worker): the GEMM
+# [4,15,150] @ [4,150,15] at K = 5, the factor of [4,150,150] and the lower
+# solve [4,150,150] \ [4,150,15] at the factor's STUDY_KF limbs (the
+# solver's initial_factor_limbs at K = 5 under LADDER_FLAGS; the phase
+# checks that its run factored at STUDY_KF)
+STUDY_K, STUDY_KF, STUDY_B, STUDY_S, STUDY_N = 5, 4, 4, 150, 15
+# the fixtures phase 18 reads: the certificate's PMP and zip, the ladder's
+# PMP (its first two blocks) and zip
+STUDY_FIXTURES = (CERTIFICATE_PMP, CERTIFICATE, LADDER_PMP, LADDER)
 
 
 class PhaseError(RuntimeError):
@@ -1242,13 +1307,15 @@ def iteration_kernel_ms(torch, mp, kernels, dev, tally, iterations, time_ms=_tim
     return totals
 
 
-def _ladder_run(torch, kernels, cli, dev, prec, iterations, check_path, chunk_iterations=1):
-    """One CLI run of the ladder for iterations + 1 iterations, in the host
-    loop (chunk_iterations=1) or the chunked loop (0): finite statistics,
-    positive steps, falling mu, out.txt written, and every kernel of
-    `check_path` launched in this run (counts set to 0 just before it,
-    read just after).  The wrapper calls by shape mean launches in the
-    host loop only (a capture calls each wrapper once)."""
+def _ladder_run(torch, kernels, cli, dev, prec, iterations, check_path, chunk_iterations=1,
+                sdp=LADDER):
+    """One CLI run of the ladder (or of `sdp`) for iterations
+    + 1 iterations, in the host loop (chunk_iterations=1) or the chunked
+    loop (0: chunks of 8; n: chunks of n): finite statistics, positive
+    steps, falling mu, out.txt written, and every kernel of `check_path`
+    launched in this run (counts set to 0 just before it, read just
+    after).  The wrapper calls by shape mean launches in the host loop
+    only (a capture calls each wrapper once)."""
     from sdpb_tpu_torch.solver.solve import host_mpf
     import numpy as np
     with tempfile.TemporaryDirectory() as tmp:
@@ -1256,7 +1323,7 @@ def _ladder_run(torch, kernels, cli, dev, prec, iterations, check_path, chunk_it
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.time()
         with _shape_tally(kernels) as tally:
-            res = cli.run(["-s", str(LADDER), "-o", str(Path(tmp) / "out"),
+            res = cli.run(["-s", str(sdp), "-o", str(Path(tmp) / "out"),
                            "-c", str(Path(tmp) / "ck"), "--timingRun", "never",
                            "--device", str(dev), *prec, *LADDER_FLAGS,
                            "--maxIterations", str(iterations)],
@@ -2269,6 +2336,198 @@ def wide3_phase(torch, mp, kernels, cli, dev, tasks):
             "classic": classic, "digits": digits, "loops": loops}
 
 
+def _sdp2input_task(files, source, precision, fmt, gens=()):
+    """Background task of phase 18: in a temporary directory, the port's
+    gen_pmp for each of `gens` ((file, seed, blocks, dim, dual, degree,
+    poles), --solvable), `files` (name -> text) written, then the port's
+    sdp2input of `source`.  (the zip's bytes, host seconds of gen_pmp, host
+    seconds of sdp2input)."""
+    from sdpb_tpu_torch.cli import sdp2input
+    from sdpb_tpu_torch.tools import gen_pmp
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+        tmp = Path(tmp)
+        t0 = time.time()
+        for name, seed, blocks, dim, dual, degree, poles in gens:
+            gen_pmp.main(["--blocks", str(blocks), "--dim", str(dim), "--dual", str(dual),
+                          "--degree", str(degree), "--poles", str(poles), "--seed", str(seed),
+                          "--solvable", "-o", str(tmp / name)])
+        t1 = time.time()
+        for name, text in files.items():
+            (tmp / name).write_text(text)
+        sdp2input.main(["-i", str(tmp / source), "-o", str(tmp / "sdp.zip"), "--precision",
+                        str(precision), "--outputFormat", fmt])
+        return (tmp / "sdp.zip").read_bytes(), t1 - t0, time.time() - t1
+
+
+def _study_kernel_task(K, Kf, B, S, N, blocks):
+    """Background task of phase 18: the operands of 18c's kernel checks
+    (from a fixed seed; the GEMM's at K limbs, the factor's, symmetric
+    positive definite, and the solve's right-hand side at Kf) as float64
+    limb stacks and, over `blocks`, the plain GEMM, factor and lower solve
+    (with the plain factor, which the kernel's matches bit for bit):
+    ((a, b, spd, rhs), [(parts, CPU seconds)] in that order)."""
+    import numpy as np
+    import torch
+    from sdpb_tpu_torch.ops import kernels, mpfloat as mp
+    rng = np.random.default_rng(18)
+    ops = (_limbs(rng, (B, N, S), K), _limbs(rng, (B, S, N), K),
+           _limbs(rng, (B, S, S), Kf, spd=True), _limbs(rng, (B, S, N), Kf))
+    a, b, spd, rhs = (_blocks_of(mp.MP(torch.as_tensor(x)), blocks) for x in ops)
+    out = []
+    for fn, args in ((kernels.mp_matmul_plain, (a, b)), (kernels.mp_cholesky_plain, (spd,))):
+        t0 = time.time()
+        r = fn(*args)
+        out.append((_parts(r), time.time() - t0))
+    t0 = time.time()
+    x = kernels.mp_solve_triangular_plain(r, rhs, True)
+    out.append((_parts(x), time.time() - t0))
+    return ops, out
+
+
+def study_tasks(background):
+    """Phase 18's host work, submitted to the background pool at the start:
+    the conversions (18a's two, 18b's toy, 18c's generated problem) and
+    18c's plain kernel versions."""
+    ladder = json.loads(LADDER_PMP.read_text())
+    ladder["PositiveMatrixWithPrefactorArray"] = ladder["PositiveMatrixWithPrefactorArray"][:2]
+    nsv = "".join(g[0] + "\0" for g in STUDY_GEN)
+    return {
+        "certificate": background.submit(_sdp2input_task, {"pmp.json": CERTIFICATE_PMP.read_text()},
+                                         "pmp.json", 400, "json"),
+        "ladder": background.submit(_sdp2input_task, {"two.json": json.dumps(ladder)},
+                                    "two.json", 256, "bin"),
+        "toy": background.submit(_sdp2input_task, {"toy.json": json.dumps(TOY_PMP)},
+                                 "toy.json", 512, "json"),
+        "generated": background.submit(_sdp2input_task, {"study.nsv": nsv}, "study.nsv",
+                                       int(STUDY_PREC), "bin", STUDY_GEN),
+        "kernels": background.submit(_study_kernel_task, STUDY_K, STUDY_KF, STUDY_B, STUDY_S,
+                                     STUDY_N, plain_blocks(STUDY_B)),
+    }
+
+
+def study_phase(torch, mp, kernels, cli, dev, tasks):
+    """Phase 18: a bootstrap study on the port alone (see the docstring)."""
+    phase("18. a bootstrap study on the port alone: sdp2input against the committed "
+          "fixtures, PMP -> card -> spectrum, a generated problem with 150 x 150 S blocks")
+    import mpmath
+    from sdpb_tpu_torch.cli import spectrum
+    from sdpb_tpu_torch.io.sdp_zip import entries
+    t_phase = time.time()
+    host_s = {}
+    # 18a: the converter against the committed fixtures, byte for byte
+    for label, fixture, names in (("certificate", CERTIFICATE, None),
+                                  ("ladder", LADDER, ["objectives.json"] + [
+                                      f"block_{kind}_{j}.{ext}" for j in (0, 1)
+                                      for kind, ext in (("info", "json"), ("data", "bin"))])):
+        data, _, host_s[label] = tasks[label].result()
+        mine, ref = entries(data), entries(fixture)
+        names = names or list(ref)
+        check(list(mine) == names if label == "certificate" else set(names) <= set(mine),
+              f"18a {label}: entries {list(mine)} against {list(ref)}")
+        bad = [n for n in names if mine.get(n) != ref[n]]
+        check(not bad, f"18a {label}: {bad} differ from {fixture.relative_to(ROOT)}")
+        print(f"18a {label}: {len(names)} entries byte for byte with "
+              f"{fixture.relative_to(ROOT)} (host seconds of sdp2input: {host_s[label]:.1f})")
+    # 18b: the toy PMP -> the card -> spectrum
+    data, _, host_s["toy"] = tasks["toy"].result()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "toy.json").write_text(json.dumps(TOY_PMP))
+        (tmp / "sdp.zip").write_bytes(data)
+        kernels.reset_launches()
+        t0 = time.time()
+        toy = cli.run(["-s", str(tmp / "sdp.zip"), "-o", str(tmp / "out"), "-c",
+                       str(tmp / "ck"), "--device", str(dev), *TOY_FLAGS])
+        solve_s = time.time() - t0
+        launches = dict(kernels.LAUNCHES)
+        check(str(toy.terminate_reason) == "found primal-dual optimal solution",
+              f"18b: the toy's solve ended with {toy.terminate_reason}")
+        check(all(launches[kernels.counter(n, False)] > 0 for n in kernels.KERNEL_NAMES),
+              f"18b: a kernel did not run: {launches}")
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            spectrum.main(["--input", str(tmp / "toy.json"), "--solution", str(tmp / "out"),
+                           "--precision", "96", "--threshold", "1e-8", "--format", "PMP",
+                           "--output", str(tmp / "spectrum.json")])
+        host_s["spectrum"] = time.time() - t0
+        doc = json.loads((tmp / "spectrum.json").read_text())
+    check(len(doc) == 1 and len(doc[0]["zeros"]) == 1, f"18b: spectrum {doc}")
+    with mpmath.workprec(200):
+        zero = mpmath.mpf(doc[0]["zeros"][0]["zero"])
+        dz = abs(zero - mpmath.mpf(STUDY_X0))
+    check(dz < mpmath.mpf(STUDY_X0_TOL), f"18b: the zero {zero} is {dz} from x0")
+    print(f"18b toy: sdp2input 512 bits (host seconds {host_s['toy']:.1f}); solve on the card "
+          f"(classic, 96 bits, chunked loop): {toy.terminate_reason} after {toy.iterations} "
+          f"iterations in {solve_s:.1f} s, launches {launches}; spectrum (host seconds "
+          f"{host_s['spectrum']:.2f}): zero {mpmath.nstr(zero, 20)}, |zero - x0| = "
+          f"{mpmath.nstr(dz, 3)}, lambda {doc[0]['zeros'][0].get('lambda')}")
+    # 18c: the generated problem, its shapes, its chunked solve on the card
+    data, gen_s, host_s["generated"] = tasks["generated"].result()
+    with tempfile.TemporaryDirectory() as tmp:
+        sdp = Path(tmp) / "study.zip"
+        sdp.write_bytes(data)
+        infos = [json.loads(v) for n, v in sorted(entries(data).items())
+                 if n.startswith("block_info_")]
+        points = sorted({i["num_points"] for i in infos})
+        sizes = sorted({i["num_points"] * i["dim"] * (i["dim"] + 1) // 2 for i in infos})
+        check(points == [19, 25] and sizes == [57, 150] and len(infos) == 8,
+              f"18c: blocks {infos}")
+        print(f"18c generated: gen_pmp (host seconds {gen_s:.2f}) + sdp2input {STUDY_PREC} bits "
+              f"(host seconds {host_s['generated']:.1f}): {len(infos)} blocks, points {points}, "
+              f"S sizes {sizes}")
+        run = _ladder_run(torch, kernels, cli, dev, ["--precision", STUDY_PREC],
+                          STUDY_ITERATIONS, kernel_path(kernels, "classic"),
+                          chunk_iterations=STUDY_CHUNK, sdp=sdp)
+    res = run["result"]
+    (kf, info), = res.graphs.items()
+    replays = sum(n for _, n, _ in res.chunks)
+    per = info["launches_per_replay"]
+    print(f"18c solve: {run['iterations']} iterations, {run['s_per_it']:.4f} s/replay "
+          f"(each {' '.join(f'{dt / n:.4f}' for _, n, dt in res.chunks)}); graphs (factor "
+          f"{kf} limbs) warm-up {info['warmup_s']:.2f} s, capture {info['capture_s']:.2f} s, "
+          f"instantiate {info['instantiate_s']:.2f} s; peak device memory "
+          f"{run['peak_bytes'] / 2**30:.2f} GiB; launches per replay {per} ({replays} replays "
+          f"+ the warm-up: {run['launches']})")
+    print("18c wrapper calls by shape (the eager warm-up and the capture): " + "; ".join(
+        f"{_call_label(k)}: {v}" for k, v in sorted(run["tally"].items(),
+                                                     key=lambda kv: _call_label(kv[0]))))
+    # the kernels at the S shape of 150, as 18c launched them, held to their
+    # plain versions
+    check(kf == STUDY_KF, f"18c factored at {kf} limbs, its kernel checks at {STUDY_KF}")
+    (a, b, spd, rhs), plains = tasks["kernels"].result()
+    A, Bm, P, R = (mp.MP(torch.as_tensor(x, device=dev)) for x in (a, b, spd, rhs))
+    B, S, N, K, Kf = STUDY_B, STUDY_S, STUDY_N, STUDY_K, STUDY_KF
+    blocks = plain_blocks(B)
+    L = kernels.mp_cholesky(P)
+    rows, queued = [], []
+    for (name, shape, k, key, label, fn), (parts, sec) in zip((
+            ("mp_matmul", (B, N, S, N), K, ((B, N, S), (B, S, N), None),
+             f"[{B},{N},{S}]@[{B},{S},{N}] K={K}", lambda: kernels.mp_matmul(A, Bm)),
+            ("mp_cholesky", (B, S), Kf, ((B, S, S), (), None), f"[{B},{S},{S}] K={Kf}",
+             lambda: kernels.mp_cholesky(P)),
+            ("mp_solve_triangular", (B, S, N), Kf, ((B, S, S), (B, S, N), True),
+             f"[{B},{S},{S}]\\[{B},{S},{N}] lower K={Kf}",
+             lambda: kernels.mp_solve_triangular(L, R, True))), plains):
+        calls = run["tally"].get((name, "classic", k) + key, 0)
+        check(calls > 0, f"18c did not call {name} {label}")
+        out = fn()
+        err = _err(_blocks_of(out, blocks), _value(parts, dev))
+        check(err == 0.0, f"18c {name} {label}: kernel differs from plain (max {err})")
+        ms = _time_ms(torch, fn)
+        bound, by = kernel_bound(name, shape, k, False)
+        rows.append((name, f"{label} (plain: CPU, blocks {blocks}; 18c's warm-up and capture "
+                           f"called it {calls} times)", err, 0.0, ms, 1e3 * sec, bound, by))
+        queued.append(_queued_ms(torch, fn))
+    _print_rows(rows)
+    print("queued (the wrappers' host time hidden behind a spin): " + ", ".join(
+        f"{r[0]} {q:.4f} ms, {r[6] / q:.1%} of its bound" for r, q in zip(rows, queued)))
+    seconds = time.time() - t_phase
+    print(f"phase 18: {seconds:.1f} s (host seconds of the conversions, in the background "
+          f"pool: " + ", ".join(f"{k} {v:.1f}" for k, v in host_s.items()) + ")")
+    return {"seconds": seconds, "host_s": host_s, "zero": float(zero),
+            "toy_iterations": toy.iterations, "run": run, "rows": rows, "queued": queued}
+
+
 def classic_limbs_diagnostic(torch, mp, kernels, dev, Ks):
     """--classic-limbs: the classic kernels at each K in Ks against their
     plain versions at phase 4's shapes (kernel_phase)."""
@@ -2369,7 +2628,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not (ROOT / "sdpb_tpu_torch").is_dir() or not all(
             f.exists() for f in (LADDER, CERTIFICATE, LADDER_PERTURBED, LADDER_PMP,
-                                 CERTIFICATE_PMP, LADDER_OUTER)):
+                                 CERTIFICATE_PMP, LADDER_OUTER) + STUDY_FIXTURES):
         print("chip_smoke.py must run from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -2405,6 +2664,7 @@ def main(argv=None):
     atexit.register(background.shutdown, cancel_futures=True)
     build_s, (wait_mid, wait_late) = build_phase(kernels, background)
     tasks10, tasks17 = wide_tasks(background), wide3_tasks(background, kernels)
+    tasks18 = study_tasks(background)
     exactness_phase(torch, mp, kernels, dev)
     rows = kernel_phase(torch, mp, kernels, dev, scaled=False)
     cert = certificate_phase(torch, kernels, cli, dev, scaled=False)
@@ -2425,6 +2685,7 @@ def main(argv=None):
     tools = tools_phase(torch, mp, kernels, cli, dev, smi, outer_limits)
     print(f"\nwaited {wait_late():.1f} s for the libraries of phase 17")
     wide3 = wide3_phase(torch, mp, kernels, cli, dev, tasks17)
+    study = study_phase(torch, mp, kernels, cli, dev, tasks18)
     background.shutdown()
     check("jax" not in sys.modules, "the port imported jax")
     check(not any(m == "sdpb_tpu" or m.startswith("sdpb_tpu.") for m in sys.modules),
@@ -2500,6 +2761,11 @@ def main(argv=None):
           f" s), the ladder {wide3['ladder']['s_per_it']:.3f} s/iteration three words "
           f"(3x9) vs {wide3['classic']['s_per_it']:.3f} classic (K=13), {wide3['digits']:.1f} "
           f"digits shared, chunked {wide3['loops']['chunked']['s_per_it']:.3f} s/replay"
+          + f"; bootstrap study (phase 18) {study['seconds']:.1f} s: the toy's zero "
+          f"{study['zero']:.12f} after {study['toy_iterations']} iterations, the generated "
+          f"problem {study['run']['s_per_it']:.4f} s/replay, the GEMM (K={STUDY_K}), factor and "
+          f"solve (K={STUDY_KF}) at n=150 at "
+          + ", ".join(f"{r[6] / r[4]:.1%}" for r in study["rows"]) + " of their bounds"
           + f"; total {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": record}))

@@ -1,6 +1,6 @@
-"""Reader of the SDPB input format, sdp.zip or a plain directory (the
-port's copy of the reader in sdpb_tpu/io/sdp_zip.py; the writer is not
-ported).
+"""Reader and writer of the SDPB input format, sdp.zip or a plain
+directory (the port's copy of sdpb_tpu/io/sdp_zip.py; the reader takes
+zip and tar, not 7z).
 
   control.json        {"num_blocks": J, "command": ...}
   objectives.json     {"constant": str, "b": [str]}
@@ -14,12 +14,14 @@ precision, parsed exactly into K-limb host arrays.
 """
 from __future__ import annotations
 
+import io
 import json
+import os
 import tarfile
 import zipfile
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -130,3 +132,77 @@ def _block_from_json(j, dim, num_points, data, N, K, np_dtype) -> BlockData:
     return BlockData(index=j, dim=dim, num_points=num_points,
                      bases_even=mat(data["bilinear_bases_even"]),
                      bases_odd=mat(data["bilinear_bases_odd"]), c=c, B=B)
+
+
+# Writing (the sdp2input and pvm2sdp output), after the reference's
+# write_sdpb_input_files.cxx: a zip that stores (no compression),
+# control and objectives first, then each block's files.
+
+
+def write_sdp(path, sdp: SDPData, command: str = "", block_format: str = "json",
+              precision: Optional[int] = None):
+    """Write an sdp.zip (a path ending in .zip) or a directory.
+    block_format 'json' or 'bin', the reference's two Block_File_Formats
+    (pvm2sdp defaults to bin, pvm2sdp/main.cxx:23)."""
+    from ..utils.strings import limbs_to_str as s
+
+    def rows(a):  # [K, h, w] -> h lists of w strings
+        return [[s(a[:, r, c]) for c in range(a.shape[2])] for r in range(a.shape[1])]
+
+    path = Path(path)
+    files = [("control.json", json.dumps(
+        {"num_blocks": sdp.num_blocks, "command": command}, indent=2)),
+        ("objectives.json", json.dumps({
+            "constant": s(sdp.objective_const),
+            "b": [s(sdp.b[:, i]) for i in range(sdp.b.shape[1])],
+        }, indent=1))]
+    for blk in sdp.blocks:
+        files.append((f"block_info_{blk.index}.json", json.dumps(
+            {"dim": blk.dim, "num_points": blk.num_points})))
+        if block_format == "bin":
+            from .sdpb_bin import write_block_data_bin
+
+            mant = 24 if blk.c.dtype == np.float32 else 53
+            prec = precision or mant * blk.c.shape[0]
+            files.append((f"block_data_{blk.index}.bin",
+                            write_block_data_bin(blk, prec)))
+        else:
+            data = {"bilinear_bases_even": rows(blk.bases_even),
+                    "bilinear_bases_odd": rows(blk.bases_odd),
+                    "c": [s(blk.c[:, i]) for i in range(blk.c.shape[1])],
+                    "B": rows(blk.B)}
+            files.append((f"block_data_{blk.index}.json", json.dumps(data)))
+
+    if str(path).endswith(".zip"):
+        with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_STORED) as zf:
+            for name, content in files:
+                zf.writestr(name, content)
+    else:
+        os.makedirs(path, exist_ok=True)
+        for name, content in files:
+            if isinstance(content, bytes):
+                (path / name).write_bytes(content)
+            else:
+                (path / name).write_text(content)
+
+
+def entries(source) -> dict:
+    """{name: bytes} of an sdp.zip (a path or its bytes) or a directory, in
+    the zip's order (a directory's sorted), with control.json's `command`
+    (which names the program that wrote it) emptied where the file is in
+    write_sdp's layout: two inputs that these equal hold the same files."""
+    if isinstance(source, (bytes, bytearray)):
+        source = io.BytesIO(source)
+    elif Path(source).is_dir():
+        return {name: _blank_command(name, (Path(source) / name).read_bytes())
+                for name in sorted(p.name for p in Path(source).iterdir())}
+    with zipfile.ZipFile(source) as zf:
+        return {name: _blank_command(name, zf.read(name)) for name in zf.namelist()}
+
+
+def _blank_command(name: str, data: bytes) -> bytes:
+    if name == "control.json":
+        doc = json.loads(data)
+        if data == json.dumps(doc, indent=2).encode():
+            return json.dumps(dict(doc, command=""), indent=2).encode()
+    return data

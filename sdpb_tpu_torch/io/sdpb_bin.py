@@ -1,5 +1,5 @@
-"""Parser of SDPB's binary block_data format (the port's copy of the reader
-in sdpb_tpu/io/sdpb_bin.py; the writer is not ported).
+"""Parser and writer of SDPB's binary block_data format (the port's copy
+of sdpb_tpu/io/sdpb_bin.py).
 
 The reference writes block_data_<j>.bin as a boost binary_oarchive
 (little-endian x86_64) holding, in order: the GMP/MPFR precision (u64),
@@ -15,6 +15,7 @@ consistent dimensions and consumes the whole archive.
 """
 from __future__ import annotations
 
+import struct
 from dataclasses import dataclass
 from typing import List, Tuple
 
@@ -182,3 +183,85 @@ def parse_block_data_bin(data: bytes, index: int, dim: int, num_points: int,
     detail = "; ".join(f"{l}: {e}" for l, e in errors[:4])
     raise ValueError(f"block_data_{index}.bin matches no known boost archive "
                      f"layout ({detail})")
+
+
+# Writer: the canonical layout (El::Int of 4 bytes, boost >= 1.59 framing)
+
+
+def _write_bigfloat(out: bytearray, x: mpmath.mpf, prec: int) -> None:
+    nlimbs = -(-prec // 64)
+    out += struct.pack("<q", prec)
+    if x == 0:
+        out += struct.pack("<i", 1)
+        out += struct.pack("<q", _EXP_ZERO)
+        out += b"\0" * (8 * nlimbs)
+        return
+    # exact, from mpmath's own fields: x = (-1)^s * man * 2^e, man of bit
+    # length b -> mpfr's M * 2^(exp - 64 nlimbs) with 2^(64n-1) <= M
+    sgn_bit, man, e, b = x._mpf_
+    sign = -1 if sgn_bit else 1
+    shift = 64 * nlimbs - b
+    if shift >= 0:
+        m = man << shift
+        exp = e + b
+    else:
+        # round to nearest, ties to even, when narrowing
+        drop = -shift
+        half = 1 << (drop - 1)
+        low = man & ((1 << drop) - 1)
+        m = man >> drop
+        if low > half or (low == half and (m & 1)):
+            m += 1
+        exp = e + b
+        if m >= 1 << (64 * nlimbs):
+            m >>= 1
+            exp += 1
+    out += struct.pack("<i", sign)
+    out += struct.pack("<q", exp)
+    out += m.to_bytes(8 * nlimbs, "little")
+
+
+_CANON = BinLayout(int_size=4, class_meta=5, item_version=4)
+
+
+def write_block_data_bin(blk, prec: int) -> bytes:
+    """Serialize a BlockData to the canonical .bin layout (it round-trips
+    with parse_block_data_bin; the framing is modern boost
+    binary_oarchive's)."""
+    from ..utils.strings import limbs_to_mpf as ltm
+
+    out = bytearray()
+    out += struct.pack("<Q", len(SIGNATURE))
+    out += SIGNATURE
+    out += struct.pack("<H", 19)          # boost archive library version
+    out += struct.pack("<Q", prec)
+
+    state = {"matrix": False, "bigfloat": False}
+
+    def class_meta(flag):
+        if not state[flag]:
+            out.extend(b"\0" * _CANON.class_meta)
+            state[flag] = True
+
+    def write_matrix(limbs3):  # [K, h, w]
+        class_meta("matrix")
+        K, h, w = limbs3.shape
+        ld = max(h, 1)
+        out.extend(struct.pack("<iii", h, w, ld))
+        if ld * w:
+            class_meta("bigfloat")
+        for cc in range(w):
+            for rr in range(ld):
+                val = ltm(limbs3[:, rr, cc]) if rr < h else mpmath.mpf(0)
+                _write_bigfloat(out, val, prec)
+
+    write_matrix(blk.B)
+    out.extend(struct.pack("<Q", blk.c.shape[1]))
+    out.extend(b"\0" * _CANON.item_version)
+    if blk.c.shape[1]:
+        class_meta("bigfloat")
+    for i in range(blk.c.shape[1]):
+        _write_bigfloat(out, ltm(blk.c[:, i]), prec)
+    write_matrix(blk.bases_even)
+    write_matrix(blk.bases_odd)
+    return bytes(out)

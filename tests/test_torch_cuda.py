@@ -860,3 +860,41 @@ def test_wide3_elementwise_kernels_refuse_two_words(cuda):
     a = _on(_wide(rng, (2, 2), 10), cuda)
     with pytest.raises(ValueError, match="G = 3"):
         tk.mp_wide3_add(a, a)
+
+
+# ---------------------------------------------------------------------------
+# A bootstrap study on the port alone (chip_smoke.py phase 18b)
+
+
+def test_bootstrap_study_on_the_card(cuda, tmp_path, capsys):
+    """The toy PMP of tests/test_spectrum.py through the port's sdp2input
+    at 512 bits, solved on the card through the CLI (classic, 96 bits, the
+    chunked loop), then the port's spectrum: one zero within 1e-5 of the
+    independently computed x0, the solve's kernels launched."""
+    import json
+
+    import mpmath
+
+    from sdpb_tpu_torch.cli import sdp2input, sdpb as cli, spectrum
+
+    from test_spectrum import TOY_PMP
+
+    (tmp_path / "toy.json").write_text(json.dumps(TOY_PMP))
+    assert sdp2input.convert(tmp_path / "toy.json", tmp_path / "sdp.zip", 512, "json") == 1
+    tk.reset_launches()
+    res = cli.run(["-s", str(tmp_path / "sdp.zip"), "-o", str(tmp_path / "out"),
+                   "-c", str(tmp_path / "ck"), "--precision", "96",
+                   "--dualityGapThreshold", "1e-15", "--primalErrorThreshold", "1e-15",
+                   "--dualErrorThreshold", "1e-15", "--initialMatrixScalePrimal", "1e2",
+                   "--initialMatrixScaleDual", "1e2", "--maxIterations", "250",
+                   "--verbosity", "0", "--writeSolution", "x,y"])
+    assert str(res.terminate_reason) == "found primal-dual optimal solution"
+    assert all(tk.LAUNCHES[tk.counter(n, False)] > 0 for n in tk.KERNEL_NAMES)
+    assert spectrum.main(["--input", str(tmp_path / "toy.json"), "--solution",
+                          str(tmp_path / "out"), "--precision", "96", "--threshold", "1e-8",
+                          "--format", "PMP", "--output", str(tmp_path / "spectrum.json")]) == 0
+    doc = json.loads((tmp_path / "spectrum.json").read_text())
+    assert len(doc) == 1 and len(doc[0]["zeros"]) == 1
+    with mpmath.workprec(200):
+        zero = mpmath.mpf(doc[0]["zeros"][0]["zero"])
+        assert abs(zero - mpmath.mpf("1.042496785718158120984007")) < mpmath.mpf("1e-5")

@@ -132,9 +132,9 @@ def test_fill_weights_matches():
 
 
 def test_pmp_readers_match(tmp_path):
-    """read_pmp_input of JSON and of a nested .nsv list, read_nsv_paths and
-    max_normalization_index agree with the JAX package; a positive pole
-    and a Mathematica file are refused."""
+    """read_pmp_input of JSON, of a nested .nsv list and of a Mathematica
+    file, read_nsv_paths and max_normalization_index agree with the JAX
+    package; a positive pole is refused."""
     sub = tmp_path / "sub"
     sub.mkdir()
     (sub / "cert.json").write_text(CERT_PMP.read_text())
@@ -158,9 +158,15 @@ def test_pmp_readers_match(tmp_path):
         (tmp_path / "bad.json").write_text(json.dumps(bad))
         with pytest.raises(ValueError, match="negative"):
             tpmp.read_pmp_input(tmp_path / "bad.json")
-        (tmp_path / "p.m").write_text("")
-        with pytest.raises(ValueError, match="not ported"):
-            tpmp.read_pmp_input(tmp_path / "p.m")
+        from test_convert import MATHEMATICA_TOY
+
+        (tmp_path / "p.m").write_text(MATHEMATICA_TOY)
+        (to, tn, tm), (jo, jn, jm) = (pkg.read_pmp_input(tmp_path / "p.m")
+                                      for pkg in (tpmp, jpmp))
+        assert (to, tn) == (jo, jn) and len(tm) == len(jm) == 1
+        assert [p.coefficients for p in tm[0].polynomials[0][0]] == \
+            [p.coefficients for p in jm[0].polynomials[0][0]]
+        assert tm[0].damped_rational.base == jm[0].damped_rational.base
 
 
 def test_perturbed_pmp_keeps_the_structure():

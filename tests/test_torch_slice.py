@@ -633,7 +633,11 @@ for name in names:
 for name in ("parallel.planner", "parallel.timing", "solver.checkpoint",
              "cli.approx_objective", "cli.outer_limits", "cli.sdp2functions",
              "tools.approx_objective", "tools.outer_limits", "tools.functions",
-             "tools.mesh", "tools.spectrum", "convert.pmp", "convert.poly"):
+             "tools.mesh", "tools.spectrum", "convert.pmp", "convert.poly",
+             "cli.sdp2input", "cli.pvm2sdp", "cli.pvm2functions", "cli.spectrum",
+             "cli.block_grid_mapping", "convert.dual_constraint_group",
+             "convert.mathematica", "convert.xml_input", "tools.gen_pmp",
+             "tools.write_bootstrap_sdp", "models.synthetic"):
     assert "sdpb_tpu_torch." + name in names, name
 from sdpb_tpu_torch.cli import sdpb as cli
 for arith in ("classic", "scaled"):
@@ -661,6 +665,35 @@ assert load_checkpoint(sys.argv[2] + "/classic.ck", build_device_sdp(host, "cpu"
 host.blocks.append(host.blocks[0])
 params = cli.solver_params_from_args(cli.build_parser().parse_args(["-s", sys.argv[1]]))
 assert timing_run(host, params, "cpu", verbosity=0)["chosen"]["policy"] in ("quantized", "exact")
+# the front and back ends of a bootstrap study: sdp2input of the certificate
+# gives the committed zip, gen_pmp, pvm2sdp of a port-written XML, spectrum
+# of the toy PMP (sys.argv[4]) from a 2-iteration solve, block_grid_mapping
+import json
+import mpmath
+from pathlib import Path
+from sdpb_tpu_torch.cli import block_grid_mapping, pvm2sdp, sdp2input, spectrum
+from sdpb_tpu_torch.convert.pmp import read_pmp_input
+from sdpb_tpu_torch.io.sdp_zip import entries
+from sdpb_tpu_torch.tools import gen_pmp, write_bootstrap_sdp
+tmp = Path(sys.argv[2])
+assert sdp2input.main(["-i", sys.argv[3], "-o", str(tmp / "cert.zip"), "--precision", "400",
+                       "--outputFormat", "json"]) == 0
+assert list(entries(tmp / "cert.zip").items()) == list(entries(sys.argv[1]).items())
+assert gen_pmp.main(["--blocks", "2", "--dim", "2", "--dual", "3", "--degree", "4",
+                     "--solvable", "-o", str(tmp / "gen.json")]) == 0
+with mpmath.workprec(64):
+    write_bootstrap_sdp.write_bootstrap_sdp(tmp / "cert.xml", *read_pmp_input(sys.argv[3]))
+assert pvm2sdp.main(["bin", "64", str(tmp / "cert.xml"), str(tmp / "pvm.zip")]) == 0
+assert read_sdp(tmp / "pvm.zip", 2).blocks[0].B.shape == read_sdp(sys.argv[1], 2).blocks[0].B.shape
+assert sdp2input.main(["-i", sys.argv[4], "-o", str(tmp / "toy.zip"), "--precision", "128"]) == 0
+cli.run(["-s", str(tmp / "toy.zip"), "-o", str(tmp / "toy"), "--device", "cpu",
+         "-c", str(tmp / "toy.ck"), "--precision", "64", "--maxIterations", "2",
+         "--verbosity", "0", "--writeSolution", "x,y"])
+assert spectrum.main(["--input", sys.argv[4], "--solution", str(tmp / "toy"), "--precision",
+                      "64", "--threshold", "1e-8", "--format", "PMP", "--output",
+                      str(tmp / "spectrum.json")]) == 0
+assert len(json.loads((tmp / "spectrum.json").read_text())) == 1
+assert block_grid_mapping.main(["4", "2", "100", "5", "5", "300"]) == 0
 # the wide path: staging, a wide product through the GEMM wrapper, a division
 import numpy as np
 from sdpb_tpu_torch.ops import kernels, linalg, mpfloat as mp, mpwide
@@ -704,19 +737,25 @@ def _jax_package_references(path: Path, root: Path = REPO) -> list:
 
 def test_port_never_imports_jax(tmp_path):
     """With jax and the JAX package blocked at import, every module of the
-    port (the wide ones, parallel/, solver/checkpoint.py and the tools that
-    drive the solver included) imports, the CLI solves (2 iterations of the
-    certificate, classic and scaled, each with its final checkpoint),
-    approx_objective and sdp2functions run, a checkpoint loads, the timing
-    run runs and the wide ops run; no source of the port, nor
+    port (the wide ones, parallel/, solver/checkpoint.py, the tools that
+    drive the solver and the front and back ends included) imports, the CLI
+    solves (2 iterations of the certificate, classic and scaled, each with
+    its final checkpoint), approx_objective and sdp2functions run, a
+    checkpoint loads, the timing run runs, sdp2input writes the committed
+    certificate zip, gen_pmp, pvm2sdp (of an XML the port writes), spectrum
+    (of the toy PMP after a 2-iteration solve) and block_grid_mapping run,
+    and the wide ops run; no source of the port, nor
     chip_smoke.py, names the JAX package as a module."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    from test_spectrum import TOY_PMP
+
+    (tmp_path / "toy.json").write_text(json.dumps(TOY_PMP))
     proc = subprocess.run([sys.executable, "-c", _GUARD, str(CERTIFICATE), str(tmp_path),
-                           str(CERTIFICATE.with_name("pmp.json"))],
+                           str(CERTIFICATE.with_name("pmp.json")), str(tmp_path / "toy.json")],
                           capture_output=True, text=True, env=env, cwd=str(REPO),
                           timeout=600)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 36
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 58
     sources = sorted((REPO / "sdpb_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) >= 20
     found = [f for p in sources for f in _jax_package_references(p)]

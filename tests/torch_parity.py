@@ -5,6 +5,7 @@ from a seed and handed to both packages as the same float64 limbs.
 Importing this module imports no JAX (only `J` does), so the CUDA tests
 can use it on a machine without JAX."""
 import math
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -267,3 +268,16 @@ def perturbed_pmp(doc: dict, delta: float, seed: int, digits: int = 80) -> dict:
                 if c < r:
                     m[c][r] = copy.deepcopy(m[r][c])
     return new
+
+
+def same_sdp(a, b):
+    """Two SDPB inputs hold the same files with the same bytes (control.json's
+    `command` aside), two zips in the same order."""
+    from sdpb_tpu_torch.io.sdp_zip import entries
+
+    ea, eb = entries(a), entries(b)
+    assert sorted(ea) == sorted(eb)
+    if not (Path(a).is_dir() or Path(b).is_dir()):
+        assert list(ea) == list(eb)
+    for name in ea:
+        assert ea[name] == eb[name], name
