@@ -148,7 +148,23 @@ Run from the root of a checkout.  Phases, each fatal on failure:
      held bit for bit to their plain versions (plain_blocks(4): every
      block, on the CPU in the background), with times, bounds and shares
      of the bound.  Each
-     conversion's seconds are host seconds of the card's machine.
+     conversion's seconds are host seconds of the card's machine;
+ 19. runs of several processes and the reference's binary checkpoint:
+     (a) phase 14's classic chunked ladder run again through the CLI at
+     world size 1 with --coordinator (an NCCL group; its all-gathers
+     captured in the graphs): every statistic and the final
+     state bit for bit phase 14's, the graphs' node counts beside phase
+     14's; (b) two ranks sharing the card (gloo) through the CLI's
+     --coordinator/--numProcesses/--processId in two spawned processes:
+     the CLI's default, the chunked loop, refuses on both; the host loop,
+     LADDER_ITERATIONS, the same statistics on both ranks, the path's
+     kernels launched on each, the objectives within MULTI_DIGITS of
+     phase 6's one process, out.txt written once, and the world-2
+     checkpoint resumed at world 1 for 1 iteration; (c) phase 15's
+     classic state written as a reference binary checkpoint (row-major
+     BigFloats of 216 bits, write_reference_checkpoint) and resumed
+     through --initialCheckpointDir for 2 iterations, within
+     REFERENCE_DIGITS of phase 15's resume from its npz checkpoint.
 Every CLI call writes its checkpoints into a temporary directory (-c), and
 the ladder phases but 15 pass --timingRun never.  Each SDP file is
 parsed once per limb count, those the phases read ahead in worker
@@ -304,8 +320,9 @@ WIDE3_DIGITS = 175
 PROBE_TILE, PROBE_CHECK_STEPS, PROBE_STEPS = (512, 512), 2048, 65536
 # phase 13's profiler runs: (label, --scaledLimbs, --reps); the gate reads
 # each profile's fastest call, so a profile of one call meets a slow
-# stretch of the shared host with nothing to spare it
-PROFILES = (("wide", 17, 2), ("classic", 0, 2), ("scaled", 9, 3))
+# stretch of the shared host with nothing to spare it; 3 scaled calls
+# (~8 s) once all fell in one such stretch (1.286x the solves)
+PROFILES = (("wide", 17, 2), ("classic", 0, 2), ("scaled", 9, 6))
 # H100 SXM at 700 W (NVIDIA data sheet): non-fused add/mul per second on
 # the CUDA cores (34 and 67 TFLOP/s count a fused multiply-add as two) and
 # device memory bytes per second
@@ -1883,7 +1900,8 @@ def checkpoint_phase(torch, mp, kernels, cli, dev, wide_state, smi):
                   f"{from_file.terminate_reason}; launches in the resumed CLI run "
                   f"{ {n: launches[n] for n in path} }; card {smi}")
             out[label] = {"bytes": nbytes, "save_s": save_s, "load_s": load_s,
-                          "launches": launches, "redistilled": redistilled, "worst": worst}
+                          "launches": launches, "redistilled": redistilled, "worst": worst,
+                          "state": first.state, "resumed": from_file}
 
         _, nbytes, save_s, load_s, redistilled = _round_trip(torch, dev, tmp, "wide", 17, 9,
                                                              wide_state)
@@ -2528,6 +2546,240 @@ def study_phase(torch, mp, kernels, cli, dev, tasks):
             "toy_iterations": toy.iterations, "run": run, "rows": rows, "queued": queued}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: runs of several processes and the reference's binary checkpoint
+
+# the digits the objectives must share: 19b's two ranks with phase 6's one
+# process (the gathered sums add the blocks in another order, K = 5 carries
+# ~80 digits), and 19c's resume from BigFloats of 216 bits (~65 digits)
+# with phase 15's resume from the npz file
+MULTI_DIGITS, REFERENCE_DIGITS = 50, 50
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _bigfloat(limbs, precision: int, record) -> bytes:
+    """One El::BigFloat image of the exact sum of float64 limbs, rounded
+    to `precision` bits (ties to even), as MPFR holds it: the significand
+    left-aligned in ceil(precision / 64) words, least significant first."""
+    parts = [math.frexp(f) for f in limbs if f != 0.0]
+    if not parts:
+        return record.pack(precision, 1, -(1 << 63) + 2, bytes(record.size - 20))
+    emin = min(e for _, e in parts) - 53
+    M = sum(int(m * 2.0 ** 53) << (e - 53 - emin) for m, e in parts)
+    sign, M = (-1 if M < 0 else 1), abs(M)
+    drop = M.bit_length() - precision
+    if drop > 0:
+        low, M, emin = M & ((1 << drop) - 1), M >> drop, emin + drop
+        if low > 1 << (drop - 1) or (low == 1 << (drop - 1) and M & 1):
+            M += 1
+    nbits = 8 * (record.size - 20)
+    return record.pack(precision, sign, M.bit_length() + emin,
+                       (M << (nbits - M.bit_length())).to_bytes(nbits // 8, "little"))
+
+
+def write_reference_checkpoint(directory, blocks: dict, y, precision: int, ranks=(0,),
+                               record_precision: bool = True) -> int:
+    """A reference binary checkpoint (save_checkpoint.cxx:11-35) of
+    per-block float64 limb stacks {block index: {"x": [K, P], "X_even":
+    [K, n, n], ...}} (io/solution.py::host_blocks) and y [K, N]: x, X (even,
+    odd), y, Y in block-index order, each block [int64 rows, int64 cols]
+    and its elements ROW-MAJOR (the row outer), each a BigFloat of
+    `precision` bits; the same bytes as checkpoint_0_<rank> for each of
+    `ranks`, and a checkpoint.json naming generation 0 and, with
+    record_precision, the precision.  Returns a file's bytes."""
+    import struct
+    record = struct.Struct(f"<qiq{8 * -(-precision // 64)}s")
+    out = bytearray()
+
+    def block(limbs):                        # [K, rows, cols]
+        out.extend(struct.pack("<qq", *limbs.shape[1:]))
+        for value in limbs.reshape(limbs.shape[0], -1).T.tolist():   # row-major
+            out.extend(_bigfloat(value, precision, record))
+
+    order = sorted(blocks)
+    for i in order:
+        block(blocks[i]["x"][:, :, None])
+    for mat in ("X", "Y"):
+        if mat == "Y":
+            block(y[:, :, None])
+        for i in order:
+            for parity in ("even", "odd"):
+                block(blocks[i][f"{mat}_{parity}"])
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    for rank in ranks:
+        (directory / f"checkpoint_0_{rank}").write_bytes(bytes(out))
+    options = {"precision": precision} if record_precision else {}
+    (directory / "checkpoint.json").write_text(json.dumps({"current": 0, "options": options}))
+    return len(out)
+
+
+def _rank_task(rank, world, ports, host, argv):
+    """Phase 19b: one rank of a CLI run of `world` processes on the card,
+    its SDP the parent's parse: first the CLI's default, the chunked loop,
+    which must refuse (ranks that share a card reduce over gloo, whose
+    collectives a CUDA graph cannot capture), then the host loop.  Returns
+    the refusal, the run's history, seconds, the launches of its kernels
+    (counted from 0) and how often it wrote the solution."""
+    from sdpb_tpu_torch.cli import sdpb as cli
+    from sdpb_tpu_torch.io import sdp_zip, solution
+    from sdpb_tpu_torch.ops import kernels
+    sdp_zip.read_sdp = lambda path, K, np_dtype=None: host
+    writes, save = [], solution.save_solution
+    solution.save_solution = lambda *a, **k: (writes.append(1), save(*a, **k))[1]
+    flags = [["--coordinator", f"127.0.0.1:{p}", "--numProcesses", str(world),
+              "--processId", str(rank)] for p in ports]
+    try:
+        cli.run(argv + flags[0])
+        refusal = None
+    except RuntimeError as e:
+        refusal = str(e)
+    kernels.reset_launches()
+    t0 = time.time()
+    res = cli.run(argv + flags[1], chunk_iterations=1)
+    return {"refusal": refusal, "history": res.history, "reason": str(res.terminate_reason),
+            "seconds": res.iteration_seconds, "wall": time.time() - t0,
+            "launches": dict(kernels.LAUNCHES), "writes": len(writes)}
+
+
+def multiprocess_phase(torch, kernels, cli, dev, smi, chunked, host, checkpoints):
+    """Phase 19: (a) phase 14's classic chunked ladder run again at world
+    size 1 through an NCCL group (its all-gathers captured in the graphs),
+    held to phase 14 bit for bit; (b) two ranks on the card through the
+    CLI's --coordinator/--numProcesses/--processId in two processes (gloo,
+    the host loop), LADDER_ITERATIONS, objectives within MULTI_DIGITS of
+    phase 6's one-process run, out.txt written once, and the world-2
+    checkpoint resumed at world 1 for 1 iteration; (c) phase 15's classic
+    state as a reference binary checkpoint (row-major BigFloats of 216
+    bits) resumed through --initialCheckpointDir, held to phase 15's resume
+    from the npz file within REFERENCE_DIGITS."""
+    phase("19. runs of several processes and the reference's binary checkpoint: "
+          "(a) world 1 over NCCL, (b) two ranks on the card over gloo, (c) a reference "
+          "checkpoint resumed")
+    from sdpb_tpu_torch.io import sdp_zip
+    from sdpb_tpu_torch.solver.step import state_tensors
+    t_phase = time.time()
+    prec = list(LADDER_PREC["classic"])
+    path = kernel_path(kernels, "classic")
+    # (a) the chunked ladder through a group of one rank: NCCL in graphs
+    flags = ["--coordinator", f"127.0.0.1:{_free_port()}", "--numProcesses", "1",
+             "--processId", "0"]
+    a = _ladder_run(torch, kernels, cli, dev, prec + flags, LADDER_ITERATIONS, path,
+                    chunk_iterations=LADDER_ITERATIONS + 1)
+    mine, ref = a["result"], chunked["result"]
+    diffs = [(i + 1, f) for i, (x, y) in enumerate(zip(ref.history, mine.history))
+             for f in x._fields if _stat_bits(getattr(x, f)) != _stat_bits(getattr(y, f))]
+    check(len(mine.history) == len(ref.history) and not diffs and
+          str(mine.terminate_reason) == str(ref.terminate_reason),
+          f"19a: world 1 over NCCL differs from phase 14: {diffs[:8]}")
+    # a run with a group returns the state gathered on the host
+    check(all(torch.equal(p, q.cpu()) for p, q in zip(state_tensors(mine.state),
+                                                      state_tensors(ref.state))),
+          "19a: the final state differs from phase 14's")
+    (_, info), = mine.graphs.items()
+    (_, info14), = ref.graphs.items()
+    print(f"(a) world 1 over NCCL: {len(mine.history)} iterations and the final state bit "
+          f"for bit phase 14's; graphs A+B nodes {info['nodes']} (kernels "
+          f"{info['kernel_nodes']}) against phase 14's {info14['nodes']} "
+          f"({info14['kernel_nodes']}); capture {info['capture_s']:.2f} s, instantiate "
+          f"{info['instantiate_s']:.2f} s; s/replay {a['s_per_it']:.4f} against "
+          f"{chunked['s_per_it']:.4f}; card {smi}")
+
+    # (b) two ranks that share the card: gloo, the host loop
+    K = cli.limbs_for_precision(int(prec[1]))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        argv = ["-s", str(LADDER), "-o", str(tmp / "out"), "-c", str(tmp / "w2"),
+                "--device", "cuda", *prec, *LADDER_FLAGS, "--timingRun", "never",
+                "--maxIterations", str(LADDER_ITERATIONS), "--verbosity", "0"]
+        t0 = time.time()
+        ports, parsed = (_free_port(), _free_port()), sdp_zip.read_sdp(LADDER, K)
+        with _pool(2) as ranks:
+            futures = [ranks.submit(_rank_task, r, 2, ports, parsed, argv) for r in (0, 1)]
+            outs = [f.result() for f in futures]
+        wall = time.time() - t0
+        check(all(o["refusal"] and "cannot be captured" in o["refusal"] for o in outs),
+              f"19b: the chunked loop over gloo on the card did not refuse: "
+              f"{[o['refusal'] for o in outs]}")
+        check([o["writes"] for o in outs] == [1, 0] and (tmp / "out" / "out.txt").exists(),
+              f"19b: the solution was written {[o['writes'] for o in outs]} times")
+        check(all(_stat_bits(x) == _stat_bits(y) for p, q in zip(outs[0]["history"],
+                                                                  outs[1]["history"])
+                  for x, y in zip(p, q)) and len(outs[0]["history"]) == len(host["history"]),
+              "19b: the ranks' statistics differ, or their count from phase 6's")
+        check(all(o["launches"][n] > 0 for o in outs for n in path),
+              f"19b: a kernel of the path did not run on a rank: {[o['launches'] for o in outs]}")
+        digits, same_steps = _shared_digits({"history": outs[0]["history"]}, host)
+        check(digits >= MULTI_DIGITS, f"19b: objectives share only {digits:.1f} digits with "
+                                      f"phase 6's one process")
+        resumed = cli.run(["-s", str(LADDER), "-o", str(tmp / "out1"), "-c", str(tmp / "w1"),
+                           "-i", str(tmp / "w2"), "--device", str(dev), *prec, *LADDER_FLAGS,
+                           "--timingRun", "never", "--maxIterations", "1", "--verbosity", "0"],
+                          chunk_iterations=1)
+        back, _ = _shared_digits({"history": resumed.history[:1]},
+                                 {"history": outs[0]["history"][-1:]})
+        check(back >= MULTI_DIGITS, f"19b: the world-1 resume of the world-2 checkpoint "
+                                    f"shares only {back:.1f} digits with its last iteration")
+    steady = statistics.median(outs[0]["seconds"][1:])
+    print(f"(b) two ranks on one card over gloo: the chunked loop refused ("
+          f"{outs[0]['refusal'][:90]}...); the host loop: {outs[0]['reason']} after "
+          f"{len(outs[0]['history'])} iterations, statistics identical on both ranks, "
+          f"objectives within {digits:.1f} digits of phase 6's one process (steps identical in "
+          f"{same_steps}); out.txt written once; steady {steady:.3f} s/iteration against "
+          f"phase 6's {host['s_per_it']:.3f}, wall {wall:.1f} s for the two processes (rank 0's "
+          f"run {outs[0]['wall']:.1f} s); launches rank 0 "
+          f"{ {n: outs[0]['launches'][n] for n in path} }, rank 1 "
+          f"{ {n: outs[1]['launches'][n] for n in path} }; the world-2 checkpoint resumed at "
+          f"world 1 ({resumed.terminate_reason}), its first iteration within {back:.1f} digits "
+          f"of the world-2 run's last; card {smi}")
+
+    # (c) phase 15's classic state as a reference binary checkpoint
+    from sdpb_tpu_torch.io.solution import host_blocks
+    from sdpb_tpu_torch.models.sdp import build_device_sdp
+    from sdpb_tpu_torch.ops import mpfloat as mp
+    c15 = checkpoints["classic"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        sdp = build_device_sdp(sdp_zip.read_sdp(LADDER, K), dev)
+        t0 = time.time()
+        nbytes = write_reference_checkpoint(tmp / "ref", host_blocks(sdp, c15["state"]),
+                                            mp.host_f64_limbs(c15["state"].y), int(prec[1]))
+        write_s = time.time() - t0
+        text = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(text):
+            res = cli.run(["-s", str(LADDER), "-o", str(tmp / "out"), "-c", str(tmp / "ck"),
+                           "-i", str(tmp / "ref"), "--device", str(dev), *prec, *LADDER_FLAGS,
+                           "--timingRun", "never", "--maxIterations", str(RESUME_ITERATIONS)],
+                          chunk_iterations=CHECKPOINT_CHUNK)
+        run_s = time.time() - t0
+    check("Loading reference binary checkpoint from" in text.getvalue(),
+          "19c: the CLI did not load the reference checkpoint")
+    npz = c15["resumed"]
+    check(len(res.history) == len(npz.history) and
+          str(res.terminate_reason) == str(npz.terminate_reason),
+          f"19c: {len(res.history)} iterations, {res.terminate_reason}, against the npz "
+          f"resume's {len(npz.history)}, {npz.terminate_reason}")
+    ref_digits, _ = _shared_digits({"history": res.history}, {"history": npz.history})
+    check(ref_digits >= REFERENCE_DIGITS, f"19c: the reference-checkpoint resume shares only "
+                                          f"{ref_digits:.1f} digits with the npz resume")
+    seconds = time.time() - t_phase
+    print(f"(c) phase 15's classic state as a reference binary checkpoint ({nbytes} bytes, "
+          f"written in {write_s:.2f} s): resumed for {len(res.history)} iterations "
+          f"({run_s:.1f} s with the load), objectives within {ref_digits:.1f} digits of the "
+          f"npz resume's")
+    print(f"phase 19: {seconds:.1f} s")
+    return {"seconds": seconds, "nodes": info["nodes"], "nodes14": info14["nodes"],
+            "digits": digits, "back": back, "ref_digits": ref_digits, "wall": wall,
+            "steady": steady}
+
+
 def classic_limbs_diagnostic(torch, mp, kernels, dev, Ks):
     """--classic-limbs: the classic kernels at each K in Ks against their
     plain versions at phase 4's shapes (kernel_phase)."""
@@ -2687,6 +2939,8 @@ def main(argv=None):
     wide3 = wide3_phase(torch, mp, kernels, cli, dev, tasks17)
     study = study_phase(torch, mp, kernels, cli, dev, tasks18)
     background.shutdown()
+    multi = multiprocess_phase(torch, kernels, cli, dev, smi, chunked["classic"]["chunked"],
+                               ladder, checkpoints)
     check("jax" not in sys.modules, "the port imported jax")
     check(not any(m == "sdpb_tpu" or m.startswith("sdpb_tpu.") for m in sys.modules),
           "the port imported the JAX package")
@@ -2766,6 +3020,11 @@ def main(argv=None):
           f"problem {study['run']['s_per_it']:.4f} s/replay, the GEMM (K={STUDY_K}), factor and "
           f"solve (K={STUDY_KF}) at n=150 at "
           + ", ".join(f"{r[6] / r[4]:.1%}" for r in study["rows"]) + " of their bounds"
+          + f"; runs of several processes (phase 19) {multi['seconds']:.1f} s: world 1 over "
+          f"NCCL bit for bit phase 14's (graph nodes {multi['nodes']} against "
+          f"{multi['nodes14']}), two ranks on the card {multi['steady']:.3f} s/iteration, "
+          f"{multi['digits']:.1f} digits shared with one process, a reference checkpoint "
+          f"resumed within {multi['ref_digits']:.1f} digits"
           + f"; total {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": record}))

@@ -6,7 +6,9 @@ attribute only, so this module never imports JAX yet both packages can
 iterate from the same problem and state.  Classic values carry float64
 limbs; scaled values (limbs, exp) carry float32 limbs and int32 exponents,
 masks then float32; wide values (`MPW`, a tuple of scaled words) carry
-across word by word.
+across word by word.  A problem and state built with pad_to (the JAX
+package's sharded layout) carry across whole, or as one rank's shard
+(parallel/mesh.py's contiguous slice of every bucket's batch).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 from .models.sdp import Bucket, BucketShape, DeviceSDP, RealSize
 from .ops.mpfloat import MP
 from .ops.mpwide import MPW
+from .parallel.mesh import shard_sdp, shard_state
 from .solver.state import BucketState, SolverState
 
 
@@ -36,8 +39,9 @@ def _mp(x, device) -> MP:
     return MP(torch.tensor(np.asarray(x.limbs, dtype=np.float64), device=device))
 
 
-def device_sdp_from_numpy(sdp, device) -> DeviceSDP:
-    """The JAX package's DeviceSDP (numpy leaves) as the port's."""
+def device_sdp_from_numpy(sdp, device, rank: int = 0, world_size: int = 1) -> DeviceSDP:
+    """The JAX package's DeviceSDP (numpy leaves) as the port's, or rank
+    `rank`'s shard of it in a run of world_size ranks."""
     device = torch.device(device)
     buckets = []
     for bk in sdp.buckets:
@@ -52,16 +56,18 @@ def device_sdp_from_numpy(sdp, device) -> DeviceSDP:
             real_sizes=tuple(RealSize(rs.block_index, rs.num_points, rs.h_even,
                                       rs.h_odd) for rs in bk.real_sizes),
             shape=BucketShape(sh.dim, sh.num_points, sh.h_even, sh.h_odd)))
-    return DeviceSDP(objective_const=_mp(sdp.objective_const, device),
-                     b=_mp(sdp.b, device), buckets=buckets)
+    out = DeviceSDP(objective_const=_mp(sdp.objective_const, device),
+                    b=_mp(sdp.b, device), buckets=buckets)
+    return out if world_size == 1 else shard_sdp(out, rank, world_size, device)
 
 
-def state_from_numpy(state, device) -> SolverState:
-    """The JAX package's SolverState (numpy leaves) as the port's."""
+def state_from_numpy(state, device, rank: int = 0, world_size: int = 1) -> SolverState:
+    """The JAX package's SolverState (numpy leaves) as the port's, or rank
+    `rank`'s shard of it."""
     device = torch.device(device)
-    return SolverState(
+    out = SolverState(
         y=_mp(state.y, device),
         buckets=[BucketState(x=_mp(bs.x, device), X_even=_mp(bs.X_even, device),
                              X_odd=_mp(bs.X_odd, device), Y_even=_mp(bs.Y_even, device),
                              Y_odd=_mp(bs.Y_odd, device)) for bs in state.buckets])
-
+    return out if world_size == 1 else shard_state(out, rank, world_size, device)

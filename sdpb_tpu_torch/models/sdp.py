@@ -15,7 +15,7 @@ ordered (s, r), r <= s.  The layout and masks equal the JAX package's.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -23,6 +23,7 @@ import torch
 from ..io.sdp_zip import SDPData
 from ..ops import mpfloat as mp, mpwide
 from ..ops.mpfloat import MP
+from ..parallel.planner import block_cost_heuristic, plan_block_slots
 
 QUANT = 8
 
@@ -117,7 +118,8 @@ def bucket_key(dim: int, num_points: int, policy: str = "quantized",
 
 
 def build_device_sdp(sdp: SDPData, device, scaled_limbs: int = 0,
-                     quant: int = QUANT, shape_policy: str = "quantized") -> DeviceSDP:
+                     quant: int = QUANT, shape_policy: str = "quantized",
+                     pad_to: int = 1, block_costs: Optional[dict] = None) -> DeviceSDP:
     """Bucket the host blocks by shape, zero-pad each block to its
     bucket's shape, and stage everything to `device`.  The host SDPData
     must hold float64 limbs.  scaled_limbs = 0 stages them as classic
@@ -127,7 +129,15 @@ def build_device_sdp(sdp: SDPData, device, scaled_limbs: int = 0,
     build_device_sdp(..., scaled_limbs=K32); K32 > 9 stages wide values
     (mpwide.f64_limbs_to_wide_parts, word by word).  `shape_policy` and
     `quant` are bucket_key's (the timing run, parallel/timing.py, picks
-    them)."""
+    them).
+
+    pad_to > 1 (the world size of a run of several processes) pads each
+    bucket's batch to a multiple of pad_to with padding blocks (mask 0,
+    block index -1, zero data) and places the blocks by plan_block_slots,
+    so that the contiguous equal split of the batch over the ranks
+    (parallel/mesh.py) balances their cost: the costs are the timing run's
+    measured block_costs ({str(block index): seconds}) when it has any,
+    else the reference's RAM heuristic."""
     device = torch.device(device)
     if np.asarray(sdp.b).dtype != np.float64:
         raise TypeError("the port stages float64 host limbs")
@@ -166,6 +176,13 @@ def build_device_sdp(sdp: SDPData, device, scaled_limbs: int = 0,
         ho_pad = max(b.bases_odd.shape[1] for b in blks)
         shape = BucketShape(dim=dim, num_points=np_pad, h_even=he_pad,
                             h_odd=ho_pad)
+        if pad_to > 1:
+            costs = [float(block_costs.get(str(b.index), 0.0)) for b in blks] \
+                if block_costs else []
+            if not any(costs):
+                costs = [block_cost_heuristic(b.dim, b.num_points, b.bases_even.shape[1],
+                                              b.bases_odd.shape[1], N) for b in blks]
+            blks = [None if i is None else blks[i] for i in plan_block_slots(costs, pad_to)]
         B = len(blks)
         n_pairs = shape.n_pairs
         P = shape.schur_size
@@ -174,11 +191,16 @@ def build_device_sdp(sdp: SDPData, device, scaled_limbs: int = 0,
         bases_odd = np.zeros((K, B, ho_pad, np_pad))
         c = np.zeros((K, B, P))
         Bmat = np.zeros((K, B, P, N))
+        mask = np.zeros(B)
         row_mask = np.zeros((B, P))
         pm_even = np.zeros((B, dim * he_pad))
         pm_odd = np.zeros((B, dim * ho_pad))
         real_sizes = []
         for i, blk in enumerate(blks):
+            if blk is None:
+                real_sizes.append(RealSize(-1, np_pad, he_pad, ho_pad))
+                continue
+            mask[i] = 1.0
             npr = blk.num_points
             he = blk.bases_even.shape[1]
             ho = blk.bases_odd.shape[1]
@@ -201,7 +223,7 @@ def build_device_sdp(sdp: SDPData, device, scaled_limbs: int = 0,
             bases_even=stage(bases_even), bases_odd=stage(bases_odd),
             emb_even=stage(emb_even), emb_odd=stage(emb_odd),
             Bmat=stage(Bmat), c=stage(c),
-            mask=stage_mask(np.ones(B)), row_mask=stage_mask(row_mask),
+            mask=stage_mask(mask), row_mask=stage_mask(row_mask),
             psd_mask_even=stage_mask(pm_even), psd_mask_odd=stage_mask(pm_odd),
             real_sizes=tuple(real_sizes), shape=shape))
 

@@ -1,4 +1,4 @@
-"""Block planning (the port's copy of sdpb_tpu/parallel/planner.py, in part):
+"""Block planning (the port's copy of sdpb_tpu/parallel/planner.py):
 
 1. `compute_block_grid_mapping`: the reference's Worst-Fit-First bin
    packing of blocks onto nodes and process groups
@@ -8,9 +8,10 @@
 2. `block_cost_heuristic`: the reference's RAM-proportional cost estimate
    2*B_band + 5*psd + 2*schur + 2*bilinear (read_block_costs.cxx:69-87),
    which the timing run reads.
-
-The device planners `plan_block_slots` and `plan_block_order` come with
-several devices (ROADMAP A10).
+3. `plan_block_slots` and `plan_block_order`: the LPT placement of a
+   bucket's blocks over the ranks of a run of several processes, so that
+   the contiguous equal split of the bucket's batch (parallel/mesh.py)
+   gives each rank a comparable total cost.
 """
 from __future__ import annotations
 
@@ -112,3 +113,34 @@ def block_cost_heuristic(dim: int, num_points: int, h_even: int, h_odd: int,
     bilinear = (dim * num_points) ** 2 * (2 if h_odd else 1)
     B_band = schur_size * dual_dim
     return 2 * B_band + 5 * psd + 2 * schur_size ** 2 + 2 * bilinear
+
+
+def _lpt_chunks(costs: Sequence, n_devices: int) -> List[List[int]]:
+    """Longest processing time first: each block, most costly first, to
+    the least loaded device that has fewer than ceil(B/n) blocks (the
+    first such device on a tie)."""
+    cap = -(-len(costs) // n_devices)
+    loads = [0] * n_devices
+    chunks: List[List[int]] = [[] for _ in range(n_devices)]
+    for idx in sorted(range(len(costs)), key=lambda i: -costs[i]):
+        d = min((d for d in range(n_devices) if len(chunks[d]) < cap),
+                key=lambda d: loads[d])
+        chunks[d].append(idx)
+        loads[d] += costs[idx]
+    return chunks
+
+
+def plan_block_slots(costs: Sequence, n_devices: int) -> list:
+    """Slots of length n_devices * ceil(B/n): device d's contiguous range
+    of ceil(B/n) slots holds its LPT blocks, then None (padding) for what
+    it lacks, inside its own range."""
+    cap = -(-len(costs) // n_devices)
+    return [s for chunk in _lpt_chunks(costs, n_devices)
+            for s in chunk + [None] * (cap - len(chunk))]
+
+
+def plan_block_order(costs: Sequence, n_devices: int) -> List[int]:
+    """A permutation of range(B) whose split into n_devices equal
+    contiguous chunks balances the total cost (the devices' LPT chunks,
+    device-major)."""
+    return [s for chunk in _lpt_chunks(costs, n_devices) for s in chunk]

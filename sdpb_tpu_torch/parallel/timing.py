@@ -1,6 +1,6 @@
-"""The timing run (the port's copy of sdpb_tpu/parallel/timing.py, one
-device): the reference's two throwaway iterations that measure block
-costs (src/sdpb/main.cxx:50-91), here deciding the bucketing policy.
+"""The timing run (the port's copy of sdpb_tpu/parallel/timing.py): the
+reference's two throwaway iterations that measure block costs
+(src/sdpb/main.cxx:50-91), here deciding the bucketing policy.
 
 Merging blocks of near shapes ("quantized") pads them and wastes work;
 keeping shapes apart ("exact") makes more, smaller batches and more
@@ -104,6 +104,25 @@ def timing_run(host_sdp, params, device, scaled_limbs: int = 0, verbosity: int =
     return {"version": 1, "measured": measured,
             "chosen": {"policy": best["policy"], "quant": best["quant"]},
             "block_costs": block_costs}
+
+
+def timing_run_broadcast(host_sdp, params, device, ck_dir, group, scaled_limbs: int = 0,
+                         verbosity: int = 1) -> dict:
+    """The timing run of a run of several processes: rank 0 measures on
+    its own device, alone, and persists the record in ck_dir; every rank
+    returns the same record (the reference's root-decides pattern,
+    main.cxx:50-91 and run.cxx:125-126).  Timing on every rank would give
+    each its own bucketing, and the ranks' programs would differ.  The
+    record rides the rendezvous store's blocking get (Group.share, up to
+    distributed.SHARE_TIMEOUT_S): a collective would time out while rank 0
+    still measures, as the JAX package's docstring says of its gloo
+    rendezvous (sdpb_tpu/parallel/timing.py:150-165)."""
+    record = None
+    if group.is_coordinator:
+        record = timing_run(host_sdp, params, device, scaled_limbs=scaled_limbs,
+                            verbosity=verbosity)
+        save_timings(ck_dir, record)
+    return json.loads(group.share(None if record is None else json.dumps(record)))
 
 
 def bucketing(record: Optional[dict]) -> Tuple[str, int]:

@@ -10,9 +10,13 @@ representation, and either package reads the other's files value for
 value.  Kept from the reference: the generation and backup rotation, the
 atomic rename of the metadata and the retried writes
 (save_checkpoint.cxx:55-119), and starting from a reference text solution
-(load_text_checkpoint.cxx:6-44), the --writeSolution=x,y,X,Y files.  The
-reference's rank-local binary checkpoints are not read: a directory
-holding them stops the run (ROADMAP A22).
+(load_text_checkpoint.cxx:6-44), the --writeSolution=x,y,X,Y files, and
+from a single-rank reference binary checkpoint (io/ref_checkpoint.py).
+
+A run of several processes saves from the state gathered on rank 0
+(parallel/mesh.py::gather_state) with the whole problem's block
+structure, and every rank loads the whole state and takes its shard, so a
+checkpoint written at one world size resumes at any other.
 """
 from __future__ import annotations
 
@@ -92,8 +96,8 @@ def save_checkpoint(checkpoint_dir, sdp: DeviceSDP, state: SolverState,
 
 def _state_from_block_arrays(sdp: DeviceSDP, y_limbs, block_arrays) -> SolverState:
     """A SolverState on sdp's device from {block_index: {x, X_even, ...}}
-    float64 limb stacks, laid out in sdp's buckets (padded PSD dims carry
-    the identity, as in initial_state) and converted to sdp's
+    float64 limb stacks, laid out in sdp's buckets (padded PSD dims and
+    padding blocks carry the identity, as in initial_state) and converted to sdp's
     representation and precision: classic limbs re-distilled to K, scaled
     parts peeled at each value's exponent, wide values word by word."""
     K, scaled, device = sdp.b.K, sdp.b.scaled, sdp.device
@@ -115,6 +119,8 @@ def _state_from_block_arrays(sdp: DeviceSDP, y_limbs, block_arrays) -> SolverSta
             out = np.zeros((Kst, B, sh.schur_size))
             o4 = out.reshape(Kst, B, sh.n_pairs, sh.num_points)
             for i, rs in enumerate(bk.real_sizes):
+                if rs.block_index < 0:           # a padding block: x = 0
+                    continue
                 arr = np.asarray(block_arrays[rs.block_index]["x"], np.float64)
                 if arr.shape != (Kst, sh.n_pairs * rs.num_points):
                     raise RuntimeError(
@@ -129,6 +135,9 @@ def _state_from_block_arrays(sdp: DeviceSDP, y_limbs, block_arrays) -> SolverSta
             n = sh.dim * h_pad
             out = np.zeros((Kst, B, n, n))
             for i, rs in enumerate(bk.real_sizes):
+                if rs.block_index < 0:           # a padding block: the identity
+                    out[0, i] = np.eye(n)
+                    continue
                 h_real = rs.h_even if even else rs.h_odd
                 arr = np.asarray(block_arrays[rs.block_index][name], np.float64)
                 nr = sh.dim * h_real
@@ -152,12 +161,14 @@ def _state_from_block_arrays(sdp: DeviceSDP, y_limbs, block_arrays) -> SolverSta
 
 
 def load_checkpoint(checkpoint_dir, sdp: DeviceSDP, verbosity: int = 1,
-                    print_fn=print) -> Optional[SolverState]:
-    """The newest npz generation, else its backup, else a reference text
+                    print_fn=print, precision: Optional[int] = None) -> Optional[SolverState]:
+    """The newest npz generation, else its backup, else a reference binary
+    checkpoint (checkpoint_<n>_<rank> files), else a reference text
     checkpoint; None when the directory holds none of these.  A reference
-    binary checkpoint (checkpoint_<n>_<rank> files) raises SystemExit: its
-    reader is not ported, and the run must not start afresh in its
-    place."""
+    binary checkpoint is read at the precision of its checkpoint.json, else
+    at `precision` (the run's --precision); without either, or when the
+    files carry another precision than the one taken from the run, the run
+    stops and asks for --precision by name."""
     ck = Path(checkpoint_dir)
     meta_path = ck / METADATA
     if meta_path.exists():
@@ -179,14 +190,33 @@ def load_checkpoint(checkpoint_dir, sdp: DeviceSDP, verbosity: int = 1,
                 return _state_from_block_arrays(sdp, data["y"], blocks)
     if ck.is_dir() and any(re.fullmatch(r"checkpoint_\d+_\d+", f.name)
                            for f in ck.iterdir() if f.is_file()):
-        raise SystemExit(
-            f"{ck} holds the reference's rank-local binary checkpoint "
-            f"(checkpoint_<n>_<rank>), whose reader is not ported to PyTorch "
-            f"(ROADMAP A22); resume from a --writeSolution=x,y,X,Y text "
-            f"checkpoint or an npz checkpoint instead")
+        return _load_reference_binary(ck, sdp, precision, verbosity, print_fn)
     if (ck / "x_0.txt").exists():
         return load_text_checkpoint(ck, sdp, verbosity, print_fn)
     return None
+
+
+def _load_reference_binary(ck: Path, sdp: DeviceSDP, precision: Optional[int],
+                           verbosity: int, print_fn) -> SolverState:
+    """load_reference_binary_checkpoint at the metadata's precision, else
+    at the run's; a missing or wrong guess stops with the precision to
+    pass."""
+    from ..io.ref_checkpoint import (PrecisionMismatch, checkpoint_precision,
+                                     load_reference_binary_checkpoint)
+
+    recorded = checkpoint_precision(ck)
+    if recorded is None and precision is None:
+        raise SystemExit(f"{ck}: no precision in the reference checkpoint's metadata; "
+                         f"pass --precision explicitly")
+    try:
+        return load_reference_binary_checkpoint(ck, sdp, recorded or precision,
+                                                verbosity, print_fn)
+    except PrecisionMismatch as e:
+        if recorded is not None:
+            raise
+        raise SystemExit(f"{ck}: no precision in the reference checkpoint's metadata, and "
+                         f"its BigFloats carry {e.found} bits, not this run's {precision}; "
+                         f"pass --precision {e.found} explicitly") from e
 
 
 def load_text_checkpoint(directory, sdp: DeviceSDP, verbosity: int = 1,
@@ -206,6 +236,8 @@ def load_text_checkpoint(directory, sdp: DeviceSDP, verbosity: int = 1,
         sh = bk.shape
         for rs in bk.real_sizes:
             idx = rs.block_index
+            if idx < 0:
+                continue
             entry = {"x": read_text_matrix(directory / f"x_{idx}.txt", K,
                                            expect_shape=(sh.n_pairs * rs.num_points, 1))[:, :, 0]}
             if y is None:

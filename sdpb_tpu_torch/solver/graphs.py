@@ -19,6 +19,13 @@ shared-memory attribute), and the buffers are restored after it.  A capture
 records the kernel launches of ops/kernels.py without running them: their
 counts are taken back out of kernels.LAUNCHES and added at every replay.
 A failed capture raises; there is no eager fallback on the card.
+
+In a run of several processes the graphs hold the iteration's NCCL
+all-gathers (solver/step.py): the communicator is made by
+one eager collective before the capture, and the capture runs in
+thread-local mode, so that the process group's watchdog thread may query
+its events meanwhile.  gloo's collectives cannot be captured: a chunked run on a card
+over gloo (ranks that share a card) raises.
 """
 from __future__ import annotations
 
@@ -66,13 +73,20 @@ class ChunkRunner:
     entries (one device-to-host copy).  On the CPU a chunk ends early once
     the loop has stopped.  Between two run() calls `state` holds the state
     the next chunk starts from, and may be read (a checkpoint) but not
-    replaced: the graphs update those tensors in place."""
+    replaced: the graphs update those tensors in place.  With a group,
+    sdp and state are the rank's shards."""
 
     def __init__(self, sdp: DeviceSDP, cfg: StepConfig, state: SolverState,
-                 carry, chunk: int, max_iterations: int):
-        self.sdp, self.cfg, self.chunk = sdp, cfg, chunk
-        self.body = make_chunked_iteration(cfg)
+                 carry, chunk: int, max_iterations: int, group=None):
+        self.sdp, self.cfg, self.chunk, self.group = sdp, cfg, chunk, group
+        self.body = make_chunked_iteration(cfg, group)
         dev = sdp.device
+        if dev.type == "cuda" and group is not None and group.backend != "nccl":
+            raise RuntimeError(
+                f"the chunked loop captures the iteration's collectives in CUDA graphs, "
+                f"and the {group.backend} backend's cannot be captured (its ranks share a "
+                f"card): run them in the host loop (chunk_iterations=1), or one process "
+                f"per card over NCCL")
         self.state = clone_state(state)
         self.rows = torch.zeros((chunk + 1, stats_layout(sdp.b).width + 1),
                                 dtype=torch.float64, device=dev)
@@ -110,6 +124,9 @@ class ChunkRunner:
 
     def _capture(self) -> None:
         dev = self.sdp.device
+        if self.group is not None:
+            self.group.warm()
+        mode = "global" if self.group is None else "thread_local"
         saved = [t.clone() for t in self._buffers()]
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -131,11 +148,11 @@ class ChunkRunner:
         graph_b = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.time()
         try:
-            with torch.cuda.graph(graph_a, pool=pool):
+            with torch.cuda.graph(graph_a, pool=pool, capture_error_mode=mode):
                 self.front = self._front()
             self.eigvals = [torch.empty(x.sym.shape[:-1], dtype=torch.float64, device=dev)
                             for x in self.front.eig_inputs]
-            with torch.cuda.graph(graph_b, pool=pool):
+            with torch.cuda.graph(graph_b, pool=pool, capture_error_mode=mode):
                 self._back(self.front, self.eigvals)
         except RuntimeError as e:
             raise RuntimeError(f"CUDA graph capture of the iteration failed: {e}") from e

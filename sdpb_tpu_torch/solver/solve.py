@@ -1,5 +1,5 @@
 """The solver run loops around the iteration (port of
-sdpb_tpu/solver/solve.py::run_solver and _solve_chunked, one device).
+sdpb_tpu/solver/solve.py::run_solver and _solve_chunked).
 
 The default loop is the chunked one: up to `chunk` iterations run on the
 device between two host reads (on a CUDA card as replays of the captured
@@ -13,6 +13,14 @@ termination checks on the host in exact arithmetic.  Either loop hands its
 state to `checkpoint_fn` once `checkpointInterval` seconds have passed
 since the last checkpoint: the host loop before an iteration, the chunked
 loop before a chunk, as the JAX package's loops do.
+
+With a `group` (a run of several processes, parallel/distributed.py) every
+rank runs the loop on its shards.  Every decision comes from statistics
+the ranks share (reduced over the ranks in the iteration): termination, the heal of a
+failed iteration, the end of a chunk; the two taken on each rank's own
+clock, a checkpoint's time and maxRuntime, are agreed over the ranks
+(Group.agree).  So no rank leaves the others' sequence of collectives.
+Only rank 0 prints.
 """
 from __future__ import annotations
 
@@ -137,6 +145,12 @@ def _finite(v) -> bool:
     return bool(np.all(np.isfinite(v[0] if isinstance(v, tuple) else v)))
 
 
+def _agreed(group, flag: bool) -> bool:
+    """A decision on the host's clock: `flag`, or in a run of several
+    processes true on every rank when it is on any (Group.agree)."""
+    return flag if group is None else group.agree(flag)
+
+
 def initial_factor_limbs(params: SolverParameters, K: int,
                          scaled: bool = False) -> tuple:
     """(factor_limbs, factor_cap) of the mixed-precision solves: the
@@ -182,15 +196,23 @@ def run_solver(sdp: DeviceSDP, params: SolverParameters, verbosity: int = 1,
                initial: Optional[SolverState] = None,
                timers: Optional[Timers] = None,
                chunk_iterations: int = 0,
-               checkpoint_fn: Optional[Callable] = None) -> SolveResult:
+               checkpoint_fn: Optional[Callable] = None, group=None) -> SolveResult:
     """Solve from `initial` (default: the initial point of `params`).
     chunk_iterations: 0 runs the chunked loop in chunks of 8, n > 1 in
     chunks of n, 1 the host loop.  checkpoint_fn(state, iteration), when
     given, is called at most every params.checkpoint_interval seconds, with
-    the state the next iteration (or chunk) starts from."""
+    the state the next iteration (or chunk) starts from.  With a group
+    (parallel/distributed.py::Group) sdp and `initial` are this rank's
+    shards (parallel/mesh.py), every rank calls run_solver, and the
+    result's state is the rank's shard."""
     K = sdp.b.K
     scaled = sdp.b.scaled
     timers = timers if timers is not None else Timers()
+    total_psd_rows = sdp.total_psd_rows
+    if group is not None:
+        total_psd_rows = group.sum_int(total_psd_rows)
+        if not group.is_coordinator:
+            verbosity = 0
 
     def parse(s: str):
         """Decimal string -> host MP parts in the problem's representation."""
@@ -205,7 +227,7 @@ def run_solver(sdp: DeviceSDP, params: SolverParameters, verbosity: int = 1,
         return StepConfig(
             kkt_residual_threshold=float(mpmath.mpf(params.kkt_residual_threshold)),
             kkt_heal=kf < factor_cap,
-            total_psd_rows=sdp.total_psd_rows,
+            total_psd_rows=total_psd_rows,
             factor_limbs=kf,
             n_refine=refinement_passes(K, kf, scaled),
             gamma=float(mpmath.mpf(params.step_length_reduction)),
@@ -224,10 +246,10 @@ def run_solver(sdp: DeviceSDP, params: SolverParameters, verbosity: int = 1,
 
     if chunk_iterations != 1:
         return _solve_chunked(sdp, params, state, make_cfg, factor_limbs, factor_cap,
-                              chunk_iterations or 8, verbosity, timers, checkpoint_fn)
+                              chunk_iterations or 8, verbosity, timers, checkpoint_fn, group)
 
     cfg = make_cfg(factor_limbs)
-    iteration = make_iteration(cfg)
+    iteration = make_iteration(cfg, group)
 
     gap_threshold = mpmath.mpf(params.duality_gap_threshold)
     primal_thr = mpmath.mpf(params.primal_error_threshold)
@@ -256,7 +278,7 @@ def run_solver(sdp: DeviceSDP, params: SolverParameters, verbosity: int = 1,
     snap = (state, it, prev_p_step, prev_d_step)
     while True:
         if checkpoint_fn is not None and \
-                time.time() - last_checkpoint >= params.checkpoint_interval:
+                _agreed(group, time.time() - last_checkpoint >= params.checkpoint_interval):
             checkpoint_fn(state, it)
             last_checkpoint = time.time()
         with timers.scope("run.iteration"):
@@ -303,7 +325,7 @@ def run_solver(sdp: DeviceSDP, params: SolverParameters, verbosity: int = 1,
                          f"factor precision to {factor_limbs} limbs "
                          f"(replaying from iteration {it})")
             cfg = make_cfg(factor_limbs)
-            iteration = make_iteration(cfg)
+            iteration = make_iteration(cfg, group)
             continue
 
         p_obj = host_mpf(st.primal_objective)
@@ -329,7 +351,7 @@ def run_solver(sdp: DeviceSDP, params: SolverParameters, verbosity: int = 1,
             reason = TerminateReason.PrimalFeasibleJumpDetected
         elif it > params.max_iterations:
             reason = TerminateReason.MaxIterationsExceeded
-        elif (time.time() - start) >= params.max_runtime:
+        elif _agreed(group, time.time() - start >= params.max_runtime):
             reason = TerminateReason.MaxRuntimeExceeded
         elif it > 1 and prev_p_step < min_p_step:
             reason = TerminateReason.PrimalStepTooSmall
@@ -377,8 +399,8 @@ _REASON_MAP = {
 
 def _solve_chunked(sdp: DeviceSDP, params: SolverParameters, state: SolverState,
                    make_cfg, factor_limbs: int, factor_cap: int, chunk: int,
-                   verbosity: int, timers: Timers,
-                   checkpoint_fn: Optional[Callable]) -> SolveResult:
+                   verbosity: int, timers: Timers, checkpoint_fn: Optional[Callable],
+                   group) -> SolveResult:
     """Up to `chunk` iterations on the device between two host reads.  The
     ten ordered termination reasons are decided on the device (comparing
     the error norms in their own dtype, float32 in a scaled run, where the
@@ -395,7 +417,8 @@ def _solve_chunked(sdp: DeviceSDP, params: SolverParameters, state: SolverState,
     layout = stats_layout(sdp.b)
     cfg = make_cfg(factor_limbs)
     with timers.scope("run.initialize"):
-        runner = ChunkRunner(sdp, cfg, state, CARRY_START, chunk, params.max_iterations)
+        runner = ChunkRunner(sdp, cfg, state, CARRY_START, chunk, params.max_iterations,
+                             group)
     graphs = {factor_limbs: runner.info}
 
     start = time.time()
@@ -412,7 +435,7 @@ def _solve_chunked(sdp: DeviceSDP, params: SolverParameters, state: SolverState,
 
     while True:
         if checkpoint_fn is not None and \
-                time.time() - last_checkpoint >= params.checkpoint_interval:
+                _agreed(group, time.time() - last_checkpoint >= params.checkpoint_interval):
             checkpoint_fn(runner.state, it_global)
             last_checkpoint = time.time()
         # a heal replays the chunk from its start: a poisoned search
@@ -453,7 +476,8 @@ def _solve_chunked(sdp: DeviceSDP, params: SolverParameters, state: SolverState,
             cfg = make_cfg(factor_limbs)
             runner.close()
             with timers.scope("run.initialize"):
-                runner = ChunkRunner(sdp, cfg, *chunk_start, chunk, params.max_iterations)
+                runner = ChunkRunner(sdp, cfg, *chunk_start, chunk, params.max_iterations,
+                                     group)
             graphs[factor_limbs] = runner.info
             continue
 
@@ -474,7 +498,7 @@ def _solve_chunked(sdp: DeviceSDP, params: SolverParameters, state: SolverState,
         if stopped:
             reason = _REASON_MAP[reason_code]
             break
-        if time.time() - start >= params.max_runtime:
+        if _agreed(group, time.time() - start >= params.max_runtime):
             reason = TerminateReason.MaxRuntimeExceeded
             break
 

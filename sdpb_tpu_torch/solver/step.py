@@ -1,6 +1,6 @@
 """One interior-point iteration: residues, Schur complement, predictor and
 corrector, step lengths and the update (port of
-sdpb_tpu/solver/step.py::make_iteration, one device).
+sdpb_tpu/solver/step.py::make_iteration).
 
 The statistics describe the INPUT state (objectives and residues are
 computed before stepping), so on termination the caller keeps the input
@@ -18,6 +18,17 @@ the step lengths' triangular solves, `Iteration.back` from their
 eigenvalues through the update.  The chunked run loop (port of
 make_chunked_iteration below) captures each half as a CUDA graph
 (solver/graphs.py) and decides termination on the device.
+
+In a run of several processes (parallel/distributed.py) each rank iterates
+on its shard of the buckets (parallel/mesh.py), and the reductions over
+the blocks are collectives at the JAX package's psum/pmax/pmin sites
+(its step.py:395-641): the objectives, Tr(XY), B^T x, Q, the corrector's
+Frobenius product and dy's B^T u summed (_psum_mp: gathered and added in
+MP), the error norms and the KKT residual maximized, the step lengths'
+least eigenvalues minimized (_pmax, _pmin: gathered, then torch.amax or
+torch.amin, so that a NaN on one rank reaches all).  Every rank then holds the
+same statistics, y, dy and steps, so that every decision made from them
+is the same on all ranks.  Without a group each helper is the identity.
 """
 from __future__ import annotations
 
@@ -32,6 +43,44 @@ from ..ops import linalg, mpfloat as mp, mpwide
 from ..ops.mpfloat import MP
 from ..ops.mpwide import MPW
 from .state import BucketState, SolverState
+
+
+def _psum_mp(x, group):
+    """The sum of an MP value over the ranks, to the representation's
+    precision: every rank's value gathered (limbs and exponents, word by
+    word) and added with the MP sum in rank order, so that every rank
+    holds the same bits, and at world size 1 the value itself.  (The JAX
+    package sums the float limbs across devices, step.py:41-62, rounding
+    once per limb: its sum keeps ~53 bits classic and ~24 scaled; ROADMAP,
+    reference defects.)"""
+    if group is None:
+        return x
+    ranks = _per_rank(x, group)
+    total = ranks[0]
+    for v in ranks[1:]:
+        total = mp.add(total, v)
+    return total
+
+
+def _per_rank(x, group) -> list:
+    """Every rank's copy of an MP or MPW value, in rank order."""
+    if isinstance(x, MPW):
+        return [MPW(ws) for ws in zip(*(_per_rank(w, group) for w in x.words))]
+    limbs = group.all_gather(x.limbs)
+    exp = None if x.exp is None else group.all_gather(x.exp)
+    return [MP(limbs[r], None if exp is None else exp[r]) for r in range(group.world_size)]
+
+
+def _pmax(x: torch.Tensor, group) -> torch.Tensor:
+    """The largest of the ranks' x, from every rank's copy gathered: a NaN
+    on any rank is passed on, as torch.maximum passes it on in one
+    process (a MAX all-reduce compares, and may drop it)."""
+    return x if group is None else torch.amax(group.all_gather(x), 0)
+
+
+def _pmin(x: torch.Tensor, group) -> torch.Tensor:
+    """The least of the ranks' x, as _pmax."""
+    return x if group is None else torch.amin(group.all_gather(x), 0)
 
 
 def _pairs(dim):
@@ -286,10 +335,13 @@ class Iteration:
     """iteration(sdp, state) -> (stats, new_state), in two halves: `front`
     through the step lengths' triangular solves, `back` from their
     eigenvalues (eigvalsh_all of front.eig_inputs) through the update.
-    The host-made constants of a config are staged once per device."""
+    The host-made constants of a config are staged once per device.  With
+    a `group` (parallel/distributed.py::Group) sdp and state are this
+    rank's shards and the reductions over blocks span the ranks."""
 
-    def __init__(self, cfg: StepConfig):
+    def __init__(self, cfg: StepConfig, group=None):
         self.cfg = cfg
+        self.group = group
         self._consts = {}
 
     def consts(self, sdp: DeviceSDP) -> dict:
@@ -320,12 +372,15 @@ class Iteration:
         one = mp.const(1.0, K, dev, scaled)
         Kf, n_refine = cfg.factor_limbs, cfg.n_refine
         zs = list(zip(sdp.buckets, state.buckets))
+        group = self.group
 
-        # ---- objectives
-        p_obj = sdp.objective_const
+        # ---- objectives (the constant counted once: on rank 0)
+        p_obj = sdp.objective_const if group is None or group.is_coordinator else \
+            mp.zeros((), K, dev, scaled=scaled)
         for bk, bs in zs:
             cx = mp.sum_(_row_mask_mp(mp.mul(bk.c, bs.x), bk.row_mask), axis=None)
             p_obj = mp.add(p_obj, cx)
+        p_obj = _psum_mp(p_obj, group)
         d_obj = mp.add(sdp.objective_const, mp.dot(sdp.b, state.y))
         gap_num = mp.abs_(mp.sub(p_obj, d_obj))
         gap_den = mp.maximum(mp.add(mp.abs_(p_obj), mp.abs_(d_obj)), one)
@@ -360,6 +415,7 @@ class Iteration:
             dual_residues.append(res)
             dual_error = torch.maximum(dual_error,
                                        mp.max_abs(_row_mask_mp(res, bk.row_mask)))
+        dual_error = _pmax(dual_error, group)
 
         # ---- primal residues P = sum_p A_p x_p - X
         primal_residues = []
@@ -372,6 +428,7 @@ class Iteration:
             primal_residues.append(Ps)
             for P in Ps:
                 primal_error_P = torch.maximum(primal_error_P, mp.max_abs(P))
+        primal_error_P = _pmax(primal_error_P, group)
 
         # ---- primal residue p = b - B^T x
         Btx = mp.zeros((sdp.dual_dim,), K, dev, scaled=scaled)
@@ -379,8 +436,8 @@ class Iteration:
             xm = _row_mask_mp(bs.x, bk.row_mask)
             t = linalg.matmul(bk.Bmat.mT, linalg.col(xm))[..., 0]     # [B,N]
             Btx = mp.add(Btx, mp.sum_(t, axis=0))
-        primal_residue_p = mp.sub(sdp.b, Btx)
-        primal_error_p = mp.max_abs(primal_residue_p)
+        primal_residue_p = mp.sub(sdp.b, _psum_mp(Btx, group))
+        primal_error_p = _pmax(mp.max_abs(primal_residue_p), group)
 
         is_pd_feasible = torch.logical_and(
             primal_error_P < cfg.primal_error_threshold,
@@ -396,6 +453,7 @@ class Iteration:
             S_solvers.append(ssol)
             SinvBs.append(V)
             Q = mp.add(Q, mp.sum_(linalg.matmul(bk.Bmat.mT, V), axis=0))
+        Q = _psum_mp(Q, group)          # the synchronize_Q reduce (cxx:23-186)
         Q_solver = linalg.PosdefSolver(linalg.symmetrize(Q), Kf)
 
         # ---- mu = Tr(XY) / total_psd_rows
@@ -407,7 +465,7 @@ class Iteration:
                 t = mp.sum_(linalg.frobenius(mp.mask_value(X, om), Y), axis=0)
                 trXY = t if trXY is None else mp.add(trXY, t)
         total_mp = mp.const(float(cfg.total_psd_rows), K, dev, scaled)
-        mu = mp.div(trXY, total_mp)
+        mu = mp.div(_psum_mp(trXY, group), total_mp)
         # clamp to the limb dtype's range (1e100 overflows float32)
         max_comp = min(cfg.max_complementarity, float(torch.finfo(fdt).max))
         max_comp_exceeded = mp.to_float_array(mu) > max_comp
@@ -437,7 +495,7 @@ class Iteration:
                                              mp.add(Y, dYs[i][ip]))
                         t = mp.sum_(t, axis=0)
                         frob = t if frob is None else mp.add(frob, t)
-                r = mp.div(frob, mp.mul(mu, total_mp))
+                r = mp.div(_psum_mp(frob, group), mp.mul(mu, total_mp))
                 beta_cand = mp.where(mp.lt(r, one), mp.mul(r, r), r)
                 beta_c_feas = mp.minimum(mp.maximum(beta_feas, beta_cand), one)
                 beta_c_infeas = mp.maximum(beta_infeas, beta_cand)
@@ -479,7 +537,7 @@ class Iteration:
                         kkt_residual, rn / torch.clamp(bn, min=tiny))
                 t = linalg.matmul(bk.Bmat.mT, u)[..., 0]
                 dy_local = mp.add(dy_local, mp.sum_(t, axis=0))
-            dy = mp.sub(primal_residue_p, dy_local)
+            dy = mp.sub(primal_residue_p, _psum_mp(dy_local, group))
             dy = Q_solver.solve(linalg.col(dy), n_refine)[..., 0]
             for i, bk in enumerate(sdp.buckets):
                 dx = mp.add(us[i], linalg.matmul(SinvBs[i], linalg.col(dy)))[..., 0]
@@ -500,6 +558,8 @@ class Iteration:
                     bdY.append(dY)
                 dXs.append(bdX)
                 dYs.append(bdY)
+
+        kkt_residual = _pmax(kkt_residual, group)
 
         # ---- the step lengths' triangular solves (their eigvalsh is the
         # back half's input)
@@ -535,6 +595,7 @@ class Iteration:
             pos += ny
             lam_p = lp if lam_p is None else torch.minimum(lam_p, lp)
             lam_d = ld if lam_d is None else torch.minimum(lam_d, ld)
+        lam_p, lam_d = _pmin(lam_p, self.group), _pmin(lam_d, self.group)
         primal_step = _step_from_lambda(lam_p, cfg.gamma)
         dual_step = _step_from_lambda(lam_d, cfg.gamma)
         both = torch.minimum(primal_step, dual_step)
@@ -565,9 +626,10 @@ class Iteration:
         return f.stats._replace(primal_step=primal_step, dual_step=dual_step), new_state
 
 
-def make_iteration(cfg: StepConfig) -> Iteration:
-    """Return iteration(sdp, state) -> (stats, new_state)."""
-    return Iteration(cfg)
+def make_iteration(cfg: StepConfig, group=None) -> Iteration:
+    """Return iteration(sdp, state) -> (stats, new_state); with a group,
+    on this rank's shards (see Iteration)."""
+    return Iteration(cfg, group)
 
 
 # ---------------------------------------------------------------------------
@@ -694,13 +756,14 @@ class ChunkedIteration:
     masked state update, the stats row and the carry.  On a CUDA device
     each half is captured as a CUDA graph (solver/graphs.py), so neither
     reads anything back to the host.  cfg.duality_gap_threshold_limbs must
-    be set."""
+    be set.  Its decisions come from the iteration's statistics, which a
+    group's ranks share, so the ranks stop together."""
 
-    def __init__(self, cfg: StepConfig):
+    def __init__(self, cfg: StepConfig, group=None):
         if cfg.duality_gap_threshold_limbs is None:
             raise ValueError("the chunked iteration needs duality_gap_threshold_limbs")
         self.cfg = cfg
-        self.iteration = Iteration(cfg)
+        self.iteration = Iteration(cfg, group)
 
     def front(self, sdp: DeviceSDP, state: SolverState) -> Front:
         return self.iteration.front(sdp, state)
@@ -773,5 +836,5 @@ class ChunkedIteration:
             torch.where(stop_now, reason_now, reason)]))
 
 
-def make_chunked_iteration(cfg: StepConfig) -> ChunkedIteration:
-    return ChunkedIteration(cfg)
+def make_chunked_iteration(cfg: StepConfig, group=None) -> ChunkedIteration:
+    return ChunkedIteration(cfg, group)

@@ -433,10 +433,13 @@ def test_cli_options_of_the_jax_cli(tmp_path, capsys):
 
 
 def test_cli_stops_at_a_reference_binary_checkpoint(tmp_path):
+    """A reference binary checkpoint that does not fit the problem stops
+    the run (its reader: tests/test_torch_ref_checkpoint.py); the run never
+    starts afresh in its place."""
     ck = tmp_path / "ck"
     ck.mkdir()
     (ck / "checkpoint_0_0").write_bytes(b"\0" * 16)
-    with pytest.raises(SystemExit, match="ROADMAP A22"):
+    with pytest.raises(ValueError, match="expected 15x1, found 0x0"):
         cli.run(["-s", str(CERTIFICATE), "-o", str(tmp_path / "out"), "-c", str(ck),
                  *CLI_SOLVE, "--maxIterations", "1", "--verbosity", "0"])
     assert not (tmp_path / "out").exists()

@@ -609,11 +609,19 @@ def test_kkt_guard_heals_then_warns(capsys):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
+    """A run of several processes needs all of its flags, and stops at a
+    block above --maxBlockMemory (row sharding, ROADMAP A25)."""
     from sdpb_tpu_torch.cli import sdpb as cli
+    from sdpb_tpu_torch.parallel.mesh import check_block_memory
 
-    with pytest.raises(SystemExit, match="not supported"):
+    with pytest.raises(SystemExit, match="needs --coordinator, --processId too"):
         cli.run(["-s", str(LADDER), "-c", str(tmp_path / "ck"), "--device", "cpu",
                  "--numProcesses", "2"])
+    sdp = tsdp.build_device_sdp(random_sdp(num_blocks=2, dim=2, num_points=3, dual_dim=3,
+                                           K=2, seed=1), "cpu", pad_to=2)
+    check_block_memory(sdp, 1 << 30)
+    with pytest.raises(SystemExit, match="ROADMAP A25"):
+        check_block_memory(sdp, 4096)
 
 
 _GUARD = r"""
@@ -630,7 +638,8 @@ import sdpb_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(sdpb_tpu_torch.__path__, "sdpb_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-for name in ("parallel.planner", "parallel.timing", "solver.checkpoint",
+for name in ("parallel.planner", "parallel.timing", "parallel.distributed",
+             "parallel.mesh", "io.ref_checkpoint", "solver.checkpoint",
              "cli.approx_objective", "cli.outer_limits", "cli.sdp2functions",
              "tools.approx_objective", "tools.outer_limits", "tools.functions",
              "tools.mesh", "tools.spectrum", "convert.pmp", "convert.poly",
@@ -694,6 +703,19 @@ assert spectrum.main(["--input", sys.argv[4], "--solution", str(tmp / "toy"), "-
                       str(tmp / "spectrum.json")]) == 0
 assert len(json.loads((tmp / "spectrum.json").read_text())) == 1
 assert block_grid_mapping.main(["4", "2", "100", "5", "5", "300"]) == 0
+# a run of one process through a gloo group (parallel/, the collectives),
+# resumed from its checkpoint rewritten as a reference binary one
+res = cli.run(["-s", sys.argv[1], "-o", str(tmp / "w1"), "--device", "cpu", "-c",
+               str(tmp / "w1.ck"), "--precision", "64", "--maxIterations", "1",
+               "--verbosity", "0", "--coordinator", "file://" + str(tmp / "rendezvous"),
+               "--numProcesses", "1", "--processId", "0"], chunk_iterations=1)
+from sdpb_tpu_torch.io.solution import host_blocks
+from sdpb_tpu_torch.ops import mpfloat
+from torch_parity import write_reference_checkpoint
+sdp = build_device_sdp(read_sdp(sys.argv[1], 2), "cpu")
+write_reference_checkpoint(tmp / "ref", host_blocks(sdp, res.state),
+                           mpfloat.host_f64_limbs(res.state.y), 192)
+assert load_checkpoint(tmp / "ref", sdp, verbosity=0) is not None
 # the wide path: staging, a wide product through the GEMM wrapper, a division
 import numpy as np
 from sdpb_tpu_torch.ops import kernels, linalg, mpfloat as mp, mpwide
@@ -741,12 +763,15 @@ def test_port_never_imports_jax(tmp_path):
     drive the solver and the front and back ends included) imports, the CLI
     solves (2 iterations of the certificate, classic and scaled, each with
     its final checkpoint), approx_objective and sdp2functions run, a
-    checkpoint loads, the timing run runs, sdp2input writes the committed
+    checkpoint loads, the timing run runs, a run through a one-rank gloo
+    group solves and its state loads from a reference binary checkpoint,
+    sdp2input writes the committed
     certificate zip, gen_pmp, pvm2sdp (of an XML the port writes), spectrum
     (of the toy PMP after a 2-iteration solve) and block_grid_mapping run,
     and the wide ops run; no source of the port, nor
     chip_smoke.py, names the JAX package as a module."""
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(REPO), str(REPO / "tests")]),
+               OMP_NUM_THREADS="1")
     from test_spectrum import TOY_PMP
 
     (tmp_path / "toy.json").write_text(json.dumps(TOY_PMP))

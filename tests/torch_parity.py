@@ -281,3 +281,18 @@ def same_sdp(a, b):
         assert list(ea) == list(eb)
     for name in ea:
         assert ea[name] == eb[name], name
+
+
+def write_reference_checkpoint(directory, blocks: dict, y, precision: int, ranks=(0,),
+                               record_precision: bool = True) -> int:
+    """chip_smoke.py's writer of a reference binary checkpoint (row-major
+    BigFloats of `precision` bits, checkpoint_0_<rank> for each of `ranks`,
+    checkpoint.json with or without the precision)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    return chip_smoke.write_reference_checkpoint(directory, blocks, np.asarray(y), precision,
+                                                 ranks, record_precision)
